@@ -1,0 +1,322 @@
+// Chambolle TV-prox and fused MYULA-step kernels for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels
+//   semiblind_tv_tpu/ops/tv_pallas.py::chambolle_prox_pallas
+//       (_kernel: warm duals in and out; _kernel_fresh: zero duals, f only)
+//   semiblind_tv_tpu/ops/fused_step_pallas.py::myula_prox_tv (_kernel)
+// which keep the whole image and both dual fields resident in VMEM for all
+// sweeps.  A 512x512 f32 field is 1 MB, far above the 227 KB of shared
+// memory of one SM, so that design does not carry over.  This first port
+// runs ONE LAUNCH PER SWEEP with the sweep-to-sweep dependency carried
+// through device memory (about 5 fields of traffic a sweep, most of it
+// served from the 50 MB L2 at 512²); at 512² a sweep is bound by launch
+// latency and L2 bandwidth, not by arithmetic.
+//
+// Per sweep s (the host issues all max_iter sweeps, no host sync):
+//   chambolle_sweep   one thread per pixel, tiles of TX x TY, grid z = chain.
+//                     A chain whose device flag active[b] is 0 returns at
+//                     once.  Reads duals from buffer s % 2, writes buffer
+//                     (s+1) % 2 (Jacobi: in place would be wrong), and
+//                     writes the tile's partial sum of rx²+ry² to
+//                     partials[b, tile] (fixed-order tree, no atomics).
+//   residual_reduce   one block per chain: sums the partials in a fixed
+//                     order, err = sqrt(sum), iters += 1, active = err > tol.
+//                     An inactive chain's partials are stale: it is skipped.
+// This reproduces tv_pallas.dual_ascent_loop exactly: the sweep whose
+// pre-update residual is <= tol still applies its update, and the next one
+// does not run.  Chain b's duals therefore end in buffer iters[b] % 2,
+// which `assemble` reads to form f = g − λ·div p.
+//
+// Built with --fmad=false so that the elementwise arithmetic rounds like
+// PyTorch's separate operations; '/' and sqrtf are IEEE (no fast math).
+//
+// The C interface takes raw pointers and a cudaStream_t and returns the
+// first CUDA error (cudaSuccess == 0).  Outputs and scratch are allocated by
+// the caller; nothing here allocates or synchronises.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int TX = 32;          // tile width (columns), one warp
+constexpr int TY = 8;           // tile height (rows)
+constexpr int NT = TX * TY;     // threads of a tile block
+constexpr int RT = 256;         // threads of a per-chain reduce block
+
+// Fixed-order shared-memory tree sum over the NT threads of a tile block.
+__device__ __forceinline__ float tile_sum(float v, float* sh) {
+  const int t = threadIdx.y * TX + threadIdx.x;
+  sh[t] = v;
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (t < s) sh[t] += sh[t + s];
+    __syncthreads();
+  }
+  return sh[0];
+}
+
+// Fixed-order sum of one chain's nblk partials by one RT-thread block.
+__device__ __forceinline__ float chain_sum(const float* part, int nblk, float* sh) {
+  float s = 0.f;
+  for (int k = threadIdx.x; k < nblk; k += RT) s += part[k];
+  sh[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = RT / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
+    __syncthreads();
+  }
+  return sh[0];
+}
+
+// Neumann divergence of (p1, p2) at (i, j) of one (M, N) plane
+// (ops/tv.py::divergence): row 0 -> p1[0], rows 1..M-2 -> p1[i] - p1[i-1],
+// row M-1 -> -p1[M-1]; the same for columns with p2; then row + column.
+__device__ __forceinline__ float div_at(const float* __restrict__ p1,
+                                        const float* __restrict__ p2,
+                                        int i, int j, int M, int N) {
+  const size_t idx = (size_t)i * N + j;
+  float a;
+  if (i == 0) a = p1[idx];
+  else if (i == M - 1) a = -p1[idx];
+  else a = p1[idx] - p1[idx - N];
+  float b;
+  if (j == 0) b = p2[idx];
+  else if (j == N - 1) b = -p2[idx];
+  else b = p2[idx] - p2[idx - 1];
+  return a + b;
+}
+
+__global__ void init_state(int* __restrict__ iters, float* __restrict__ err,
+                           int* __restrict__ active, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < B) {
+    iters[b] = 0;
+    err[b] = INFINITY;
+    active[b] = 1;
+  }
+}
+
+// One Chambolle sweep on g/λ for every active chain.
+__global__ void __launch_bounds__(NT)
+chambolle_sweep(const float* __restrict__ g, const float* __restrict__ lam_ptr,
+                const float* __restrict__ px, const float* __restrict__ py,
+                float* __restrict__ qx, float* __restrict__ qy,
+                const int* __restrict__ active, float* __restrict__ partials,
+                int M, int N, float tau) {
+  __shared__ float sh[NT];
+  const int b = blockIdx.z;
+  if (!active[b]) return;  // uniform over the block
+  const size_t off = (size_t)b * M * N;
+  const float* gb = g + off;
+  const float* pxb = px + off;
+  const float* pyb = py + off;
+  const float lam = *lam_ptr;
+  const int j = blockIdx.x * TX + threadIdx.x;
+  const int i = blockIdx.y * TY + threadIdx.y;
+  float r2 = 0.f;
+  if (i < M && j < N) {
+    const size_t idx = (size_t)i * N + j;
+    const float u = div_at(pxb, pyb, i, j, M, N) - gb[idx] / lam;
+    float upx = 0.f, upy = 0.f;
+    if (i < M - 1) upx = (div_at(pxb, pyb, i + 1, j, M, N) - gb[idx + N] / lam) - u;
+    if (j < N - 1) upy = (div_at(pxb, pyb, i, j + 1, M, N) - gb[idx + 1] / lam) - u;
+    const float tmp = sqrtf(upx * upx + upy * upy);
+    const float p1 = pxb[idx];
+    const float p2 = pyb[idx];
+    const float rx = -upx + tmp * p1;
+    const float ry = -upy + tmp * p2;
+    r2 = rx * rx + ry * ry;
+    const float denom = 1.0f + tau * tmp;
+    qx[off + idx] = (p1 + tau * upx) / denom;
+    qy[off + idx] = (p2 + tau * upy) / denom;
+  }
+  const float s = tile_sum(r2, sh);
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    partials[(size_t)b * gridDim.x * gridDim.y + blockIdx.y * gridDim.x + blockIdx.x] = s;
+}
+
+__global__ void __launch_bounds__(RT)
+residual_reduce(const float* __restrict__ partials, int nblk,
+                int* __restrict__ active, int* __restrict__ iters,
+                float* __restrict__ err, float tol) {
+  __shared__ float sh[RT];
+  const int b = blockIdx.x;
+  if (!active[b]) return;  // stale partials: leave the chain as it is
+  const float s = chain_sum(partials + (size_t)b * nblk, nblk, sh);
+  if (threadIdx.x == 0) {
+    const float e = sqrtf(s);
+    err[b] = e;
+    iters[b] += 1;
+    active[b] = (e > tol) ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(RT)
+sum_reduce(const float* __restrict__ partials, int nblk, float* __restrict__ out) {
+  __shared__ float sh[RT];
+  const int b = blockIdx.x;
+  const float s = chain_sum(partials + (size_t)b * nblk, nblk, sh);
+  if (threadIdx.x == 0) out[b] = s;
+}
+
+// f = g − λ·div p from buffer iters[b] % 2; optionally also the final duals.
+__global__ void __launch_bounds__(NT)
+assemble(const float* __restrict__ g, const float* __restrict__ lam_ptr,
+         const float* __restrict__ px_buf, const float* __restrict__ py_buf,
+         const int* __restrict__ iters, float* __restrict__ f,
+         float* __restrict__ px_out, float* __restrict__ py_out,
+         int B, int M, int N) {
+  const int b = blockIdx.z;
+  const int j = blockIdx.x * TX + threadIdx.x;
+  const int i = blockIdx.y * TY + threadIdx.y;
+  if (i >= M || j >= N) return;
+  const size_t plane = (size_t)M * N;
+  const size_t off = (size_t)b * plane;
+  const size_t sel = (size_t)(iters[b] & 1) * B * plane + off;
+  const float* pxb = px_buf + sel;
+  const float* pyb = py_buf + sel;
+  const size_t idx = (size_t)i * N + j;
+  f[off + idx] = g[off + idx] - *lam_ptr * div_at(pxb, pyb, i, j, M, N);
+  if (px_out != nullptr) {
+    px_out[off + idx] = pxb[idx];
+    py_out[off + idx] = pyb[idx];
+  }
+}
+
+// MYULA update at one pixel, in the operation order of
+// samplers/myula.py::myula_kernel_step.
+__device__ __forceinline__ float myula_at(const float* __restrict__ x,
+                                          const float* __restrict__ prox,
+                                          const float* __restrict__ grad,
+                                          const float* __restrict__ z, size_t idx,
+                                          float gamma, float lam, float s2g,
+                                          int positivity) {
+  const float xv = x[idx];
+  const float v = xv + gamma * (prox[idx] - xv) / lam - gamma * grad[idx] + s2g * z[idx];
+  return positivity ? fabsf(v) : v;
+}
+
+// xn = [abs](x + γ(prox−x)/λ − γ·gradF + √(2γ)·Z), plus per-tile partials of
+// the circular-difference TV of xn.  The two backward neighbours of xn are
+// recomputed from the inputs (same operations, same result) instead of read
+// back, so one launch gives both.
+__global__ void __launch_bounds__(NT)
+myula_prologue(const float* __restrict__ x, const float* __restrict__ prox,
+               const float* __restrict__ grad, const float* __restrict__ z,
+               const float* __restrict__ gamma_ptr, const float* __restrict__ lam_ptr,
+               float* __restrict__ xn, float* __restrict__ partials,
+               int M, int N, int positivity) {
+  __shared__ float sh[NT];
+  const int b = blockIdx.z;
+  const size_t off = (size_t)b * M * N;
+  const float gamma = *gamma_ptr;
+  const float lam = *lam_ptr;
+  const float s2g = sqrtf(2.0f * gamma);
+  const int j = blockIdx.x * TX + threadIdx.x;
+  const int i = blockIdx.y * TY + threadIdx.y;
+  float t = 0.f;
+  if (i < M && j < N) {
+    const float* xb = x + off;
+    const float* pb = prox + off;
+    const float* gb = grad + off;
+    const float* zb = z + off;
+    const size_t idx = (size_t)i * N + j;
+    const float c = myula_at(xb, pb, gb, zb, idx, gamma, lam, s2g, positivity);
+    xn[off + idx] = c;
+    const size_t left = (size_t)i * N + (j == 0 ? N - 1 : j - 1);
+    const size_t up = (size_t)(i == 0 ? M - 1 : i - 1) * N + j;
+    const float dh = c - myula_at(xb, pb, gb, zb, left, gamma, lam, s2g, positivity);
+    const float dv = c - myula_at(xb, pb, gb, zb, up, gamma, lam, s2g, positivity);
+    t = sqrtf(dh * dh + dv * dv);
+  }
+  const float s = tile_sum(t, sh);
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    partials[(size_t)b * gridDim.x * gridDim.y + blockIdx.y * gridDim.x + blockIdx.x] = s;
+}
+
+// The sweep/reduce loop from the state in buffer 0, then assembly.
+cudaError_t prox_from_buffer0(const float* g, const float* lam, float* px_buf,
+                              float* py_buf, int* iters, float* err, int* active,
+                              float* partials, float* f, float* px_out,
+                              float* py_out, int B, int M, int N, int max_iter,
+                              float tau, float tol, cudaStream_t st) {
+  const dim3 block(TX, TY);
+  const dim3 grid((N + TX - 1) / TX, (M + TY - 1) / TY, B);
+  const int nblk = (int)(grid.x * grid.y);
+  const size_t n = (size_t)B * M * N;
+  cudaError_t e;
+  init_state<<<(B + 255) / 256, 256, 0, st>>>(iters, err, active, B);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  for (int s = 0; s < max_iter; ++s) {
+    const size_t rd = (size_t)(s & 1) * n;
+    const size_t wr = (size_t)((s + 1) & 1) * n;
+    chambolle_sweep<<<grid, block, 0, st>>>(g, lam, px_buf + rd, py_buf + rd,
+                                            px_buf + wr, py_buf + wr, active,
+                                            partials, M, N, tau);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    residual_reduce<<<B, RT, 0, st>>>(partials, nblk, active, iters, err, tol);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  assemble<<<grid, block, 0, st>>>(g, lam, px_buf, py_buf, iters, f, px_out,
+                                   py_out, B, M, N);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of per-tile partials of one chain for an (M, N) image: the caller
+// sizes `partials` as B times this.
+int sb_num_tiles(int M, int N) { return ((N + TX - 1) / TX) * ((M + TY - 1) / TY); }
+
+// Kernel A (A1 warm form when px_in/py_in are given, A2 fresh form when they
+// are null).  px_buf/py_buf: (2, B, M, N) scratch; px_out/py_out may be null.
+int sb_chambolle_prox(const float* g, const float* lam, const float* px_in,
+                      const float* py_in, float* px_buf, float* py_buf, int* iters,
+                      float* err, int* active, float* partials, float* f,
+                      float* px_out, float* py_out, int B, int M, int N,
+                      int max_iter, float tau, float tol, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)B * M * N * sizeof(float);
+  cudaError_t e;
+  if (px_in != nullptr) {
+    if ((e = cudaMemcpyAsync(px_buf, px_in, bytes, cudaMemcpyDeviceToDevice, st)) != cudaSuccess) return e;
+    if ((e = cudaMemcpyAsync(py_buf, py_in, bytes, cudaMemcpyDeviceToDevice, st)) != cudaSuccess) return e;
+  } else {
+    if ((e = cudaMemsetAsync(px_buf, 0, bytes, st)) != cudaSuccess) return e;
+    if ((e = cudaMemsetAsync(py_buf, 0, bytes, st)) != cudaSuccess) return e;
+  }
+  return prox_from_buffer0(g, lam, px_buf, py_buf, iters, err, active, partials,
+                           f, px_out, py_out, B, M, N, max_iter, tau, tol, st);
+}
+
+// Kernel B: MYULA prologue (xn, tv) -> n_sweeps fresh sweeps on xn/(λθ) ->
+// proxn = xn − λθ·div p.
+int sb_myula_prox_tv(const float* x, const float* prox, const float* grad,
+                     const float* z, const float* gamma, const float* lam,
+                     const float* lam_theta, float* xn, float* proxn, float* tv,
+                     float* px_buf, float* py_buf, int* iters, float* err,
+                     int* active, float* partials, int B, int M, int N,
+                     int n_sweeps, float tau, float tol, int positivity,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 block(TX, TY);
+  const dim3 grid((N + TX - 1) / TX, (M + TY - 1) / TY, B);
+  const int nblk = (int)(grid.x * grid.y);
+  const size_t bytes = (size_t)B * M * N * sizeof(float);
+  cudaError_t e;
+  myula_prologue<<<grid, block, 0, st>>>(x, prox, grad, z, gamma, lam, xn,
+                                         partials, M, N, positivity);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  sum_reduce<<<B, RT, 0, st>>>(partials, nblk, tv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = cudaMemsetAsync(px_buf, 0, bytes, st)) != cudaSuccess) return e;
+  if ((e = cudaMemsetAsync(py_buf, 0, bytes, st)) != cudaSuccess) return e;
+  return prox_from_buffer0(xn, lam_theta, px_buf, py_buf, iters, err, active,
+                           partials, proxn, nullptr, nullptr, B, M, N, n_sweeps,
+                           tau, tol, st);
+}
+
+}  // extern "C"
