@@ -7,7 +7,8 @@ Phases:
   0. the card (nvidia-smi name and power limit), torch/CUDA versions; TF32
      off for matmuls and convolutions (the port's counterpart of the JAX
      package's Precision.HIGHEST).  Exits non-zero without a CUDA card.
-  1. builds the kernels of semiblind_tv_tpu_torch/csrc/tv_kernels.cu.
+  1. builds the kernel library from every source under
+     semiblind_tv_tpu_torch/csrc/ (one nvcc per source, in parallel).
   2. kernel against plain PyTorch version, same inputs, at 512² (B=1, 16)
      and a ragged shape (B=3, 480×352): kernel A fresh form at tol=0 (25
      sweeps) and tol=1e-3, kernel A warm form from non-zero duals (10
@@ -23,6 +24,25 @@ Phases:
      agree.
   4. SAPG step rate (chain-iter/s) at 512², B=1 and B=16, kernel and plain
      spatial segment; a 330-iteration SALSA solve (outer tol 0) at 512².
+  5. the large-image path through the blocked kernels (csrc/tv_blocked.cu):
+     a. blocked kernel against plain at 1024² (B=1, 4), 2048² (B=1, 2) and
+        a ragged 1000×1528 (B=3): fresh prox at tol=0 (25 sweeps) and
+        tol=1e-3, warm prox from non-zero duals (10 sweeps, duals
+        returned) at tol=0 and tol=1e-3, fused step (25 sweeps) at σ²=1
+        and σ²≠1; the same bounds as phase 2, one chain exiting inside a
+        pass (the redo).  Times of the blocked kernel, its plain version
+        and the one-launch-per-sweep kernel of phase 2 (A2/A1/B) on the
+        same inputs.
+     b. `run_demo` at 2048² synthetic — Gaussian with w free and the
+        σ²-log-scale option, Laplace, Moffat — and at 1024² synthetic with
+        the published Gaussian preset (w pinned), 2000 samples after 1500
+        warm-up, SALSA to 500: the blocked counters rose and kernel A's and
+        B's did not, results finite and in their boxes, mse_db below y's.
+     c. the 1024² pipeline (60 SAPG steps, 60 SALSA iterations) through the
+        blocked kernels and through their plain versions on the card, same
+        injected noise: θ_EB, σ²_EB and mse_db agree to 1e-3 relative.
+     d. SAPG chain-iter/s at 1024² B=4 and 2048² B=1, 2 (blocked, kernel
+        B, plain); SALSA at 2048², 100 outer iterations (tol 0).
 
 Prints the card line, a JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
@@ -39,6 +59,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REL_BOUND = 1e-5
+KERNELS_SRC = "semiblind_tv_tpu_torch/csrc/tv_kernels.cu"
+BLOCKED_SRC = "semiblind_tv_tpu_torch/csrc/tv_blocked.cu"
+# phase 5: the image sizes of the two rungs above 512² and the kernel shapes
+TILED, STREAMED = 1024, 2048
+KERNEL_SHAPES = [(1, TILED, TILED), (4, TILED, TILED), (1, STREAMED, STREAMED),
+                 (2, STREAMED, STREAMED), (3, 1000, 1528)]
+DEMO_BUDGET = dict(samples=2000, warmup=1500, burn_in=1600)
 
 
 def check(cond, msg):
@@ -72,7 +99,19 @@ def cuda_ms(fn, reps=20, warm=3):
 
 
 def rel(a, b):
-    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    """The largest per-chain relative deviation: max|a − b| over a chain's
+    field over that chain's largest magnitude, so a chain of small values
+    is held to its own scale ((B,) vectors: element by element)."""
+    if a.ndim < 2:
+        a, b = a.reshape(-1, 1), b.reshape(-1, 1)
+    elif a.ndim == 2:
+        a, b = a[None], b[None]
+    d = (a - b).abs().flatten(1).amax(1)
+    return float((d / b.abs().flatten(1).amax(1).clamp_min(1e-30)).max())
+
+
+def max_abs(pairs):
+    return max(float((a - b).abs().max()) for a, b in pairs)
 
 
 def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
@@ -97,7 +136,7 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
         kf, kst = tv_cuda.chambolle_prox_cuda(g, lam_sapg, 25, tol=0.0, return_state=False)
         pf, pst = tv_cuda.chambolle_prox_plain(g, lam_sapg, 25, tol=0.0, return_state=False)
         e_a2 = rel(kf, pf)
-        stats["A2"]["max_abs_err"] = max(stats["A2"]["max_abs_err"], float((kf - pf).abs().max()))
+        stats["A2"]["max_abs_err"] = max(stats["A2"]["max_abs_err"], max_abs([(kf, pf)]))
         kf1, kst1 = tv_cuda.chambolle_prox_cuda(g, lam_sapg, 25, tol=1e-3, return_state=False)
         pf1, pst1 = tv_cuda.chambolle_prox_plain(g, lam_sapg, 25, tol=1e-3, return_state=False)
         it_k, it_p = kst1.iters.tolist(), pst1.iters.tolist()
@@ -106,9 +145,7 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
         qf, qst = tv_cuda.chambolle_prox_plain(g, lam_salsa, 10, tol=0.0, duals=(px0, py0))
         e_a1 = max(rel(wf, qf), rel(wst.px, qst.px), rel(wst.py, qst.py))
         stats["A1"]["max_abs_err"] = max(
-            stats["A1"]["max_abs_err"],
-            *(float((a - b).abs().max()) for a, b in ((wf, qf), (wst.px, qst.px), (wst.py, qst.py))),
-        )
+            stats["A1"]["max_abs_err"], max_abs([(wf, qf), (wst.px, qst.px), (wst.py, qst.py)]))
         wf1, wst1 = tv_cuda.chambolle_prox_cuda(g, lam_salsa, 10, duals=(px0, py0))
         qf1, qst1 = tv_cuda.chambolle_prox_plain(g, lam_salsa, 10, duals=(px0, py0))
         wit_k, wit_p = wst1.iters.tolist(), qst1.iters.tolist()
@@ -121,9 +158,7 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
         kb = fused_step_cuda.myula_prox_tv(x, prox, grad, z, *sc, 25, tol=0.0)
         pb = fused_step_cuda.myula_prox_tv_plain(x, prox, grad, z, *sc, 25, tol=0.0)
         e_b = [rel(a, b) for a, b in zip(kb, pb)]
-        stats["B"]["max_abs_err"] = max(
-            stats["B"]["max_abs_err"], *(float((a - b).abs().max()) for a, b in zip(kb[:2], pb[:2]))
-        )
+        stats["B"]["max_abs_err"] = max(stats["B"]["max_abs_err"], max_abs(zip(kb[:2], pb[:2])))
         torch.cuda.synchronize()
         print(f"phase2 B={B} {M}x{N}: A2 tol=0 rel {e_a2:.3e}; A2 tol=1e-3 iters kernel {it_k} "
               f"plain {it_p}; A1 warm tol=0 rel {e_a1:.3e}; A1 tol=1e-3 iters kernel {wit_k} "
@@ -153,14 +188,143 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
     return stats
 
 
-def step_rate(torch, problem, B, spatial_fn, n_steps=200, warm=20):
+def mid_pass_scale(torch, img, lam, prox_plain, K=8):
+    """A scale s at which the plain prox of s·img stops inside a pass of K
+    sweeps (2 ≤ sweeps ≤ 23, not a multiple of K): the middle of the run of
+    scales that stop on such a sweep, found on the card."""
+    import numpy as np
+
+    def iters(logs):
+        g = img[None] * torch.tensor(10.0 ** logs, dtype=img.dtype, device=img.device)[:, None, None]
+        return prox_plain(g.contiguous(), lam, 25)[1].iters.cpu().numpy()
+
+    coarse = np.linspace(-12.0, 1.0, 53)
+    its = iters(coarse)
+    lo = coarse[np.nonzero(its == 1)[0].max()] if (its == 1).any() else coarse[0]
+    hi = coarse[np.nonzero(its == 25)[0].min()] if (its == 25).any() else coarse[-1]
+    fine = np.linspace(lo, hi, 64)
+    f_its = iters(fine)
+    ok = [t for t in range(2, 24) if t % K and (f_its == t).sum() >= 1]
+    check(ok, f"no scale stops inside a pass: {f_its.tolist()}")
+    # prefer a stop after the first pass: its redo starts from a ping-pong
+    # buffer, not from the virgin duals
+    target = max(ok, key=lambda t: (t > K and (f_its == t).sum() >= 2, (f_its == t).sum()))
+    return float(10.0 ** np.median(fine[f_its == target])), target
+
+
+def phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag):
+    """Blocked kernel vs plain vs the per-sweep kernel (A2/A1/B) at the
+    large path's shapes."""
+    g0 = torch.Generator(device=dev)
+    g0.manual_seed(5)
+    rows = {"F": "tiled", "G": "tiled", "H": "streamed", "I": "streamed"}
+    stats = {k: dict(max_abs_err=0.0, ms=None, plain_ms=None, per_sweep_ms=None)
+             for k in rows}
+    lam_sapg = torch.tensor(0.02, device=dev)
+    lam_salsa = torch.tensor(100.0, device=dev)
+    # a natural image at every size: wheel.png tiled (it is 512²)
+    reps = -(-max(max(s[1:]) for s in KERNEL_SHAPES) // wheel.shape[0])
+    big = wheel.repeat(reps, reps)
+    exits = []
+    for B, M, N in KERNEL_SHAPES:
+        prox_row, step_row = ("F", "G") if tb.blocked_rung((M, N)) == "tiled" else ("H", "I")
+        img = big[:M, :N]
+        noise = lambda s=1.0: torch.randn((B, M, N), generator=g0, device=dev) * s
+        base = (img[None] + 5.0 * noise()).contiguous()
+        if B == 1:
+            scales = torch.ones(1, device=dev)
+        elif B == 3:   # one chain that stops inside a pass, one flat, one full
+            s_mid, t_mid = mid_pass_scale(torch, base[0], lam_sapg, tb.chambolle_prox_blocked_plain)
+            scales = torch.tensor([s_mid, 1e-10, 1.0], device=dev)
+            print(f"phase5 {M}x{N}: chain 0 scaled by {s_mid:.4g} to stop after {t_mid} "
+                  "sweeps (plain)", flush=True)
+        else:
+            scales = torch.logspace(0, -10, B, device=dev)
+        scales = scales[:, None, None]
+        g = (base * scales).contiguous()
+        px0, py0 = (noise(0.1) * scales).contiguous(), (noise(0.1) * scales).contiguous()
+
+        kf, kst = tb.chambolle_prox_blocked(g, lam_sapg, 25, tol=0.0, return_state=False)
+        pf, pst = tb.chambolle_prox_blocked_plain(g, lam_sapg, 25, tol=0.0, return_state=False)
+        e_f = rel(kf, pf)
+        _, kst1 = tb.chambolle_prox_blocked(g, lam_sapg, 25, tol=1e-3, return_state=False)
+        _, pst1 = tb.chambolle_prox_blocked_plain(g, lam_sapg, 25, tol=1e-3, return_state=False)
+        it_k, it_p = kst1.iters.tolist(), pst1.iters.tolist()
+        wf, wst = tb.chambolle_prox_blocked(g, lam_salsa, 10, tol=0.0, duals=(px0, py0))
+        qf, qst = tb.chambolle_prox_blocked_plain(g, lam_salsa, 10, tol=0.0, duals=(px0, py0))
+        e_w = max(rel(wf, qf), rel(wst.px, qst.px), rel(wst.py, qst.py))
+        _, wst1 = tb.chambolle_prox_blocked(g, lam_salsa, 10, duals=(px0, py0))
+        _, qst1 = tb.chambolle_prox_blocked_plain(g, lam_salsa, 10, duals=(px0, py0))
+        wit_k, wit_p = wst1.iters.tolist(), qst1.iters.tolist()
+        stats[prox_row]["max_abs_err"] = max(
+            stats[prox_row]["max_abs_err"],
+            max_abs([(kf, pf), (wf, qf), (wst.px, qst.px), (wst.py, qst.py)]))
+
+        x = (img[None] + noise(5.0)).abs().contiguous()
+        prox = (x + noise(0.1)).contiguous()
+        grad = noise(0.01).contiguous()
+        z = noise().contiguous()
+        sc = (torch.tensor(1.9, device=dev), torch.tensor(2.0, device=dev), lam_sapg)
+        e_s = {}
+        for s2 in (1.0, 2.5):
+            s2_t = torch.tensor(s2, device=dev)
+            kb = fused_step_cuda.myula_prox_tv_blocked(x, prox, grad, z, *sc, s2_t, tol=0.0)
+            pb = fused_step_cuda.myula_prox_tv_blocked_plain(x, prox, grad, z, *sc, s2_t, tol=0.0)
+            e_s[s2] = [rel(a, b) for a, b in zip(kb, pb)]
+            stats[step_row]["max_abs_err"] = max(stats[step_row]["max_abs_err"],
+                                                 max_abs(zip(kb[:2], pb[:2])))
+        torch.cuda.synchronize()
+        print(f"phase5 B={B} {M}x{N}: {prox_row} fresh tol=0 rel {e_f:.3e}; tol=1e-3 iters "
+              f"kernel {it_k} plain {it_p}; warm tol=0 rel {e_w:.3e}; warm tol=1e-3 iters "
+              f"kernel {wit_k} plain {wit_p}; {step_row} σ²=1 rel xn/proxn/tv "
+              f"{'/'.join(f'{v:.3e}' for v in e_s[1.0])}, σ²=2.5 "
+              f"{'/'.join(f'{v:.3e}' for v in e_s[2.5])} (bound {REL_BOUND:g})", flush=True)
+        check(e_f <= REL_BOUND, f"{prox_row} fresh disagrees: {e_f}")
+        check(e_w <= REL_BOUND, f"{prox_row} warm disagrees: {e_w}")
+        check(max(max(v) for v in e_s.values()) <= REL_BOUND, f"{step_row} disagrees: {e_s}")
+        check(kst.iters.tolist() == pst.iters.tolist() == [25] * B, "tol=0 must run 25 sweeps")
+        check(it_k == it_p, f"{prox_row} sweep counts differ: {it_k} vs {it_p}")
+        check(wit_k == wit_p, f"{prox_row} warm sweep counts differ: {wit_k} vs {wit_p}")
+        exits += [t for t in it_k if t < 25 and t % 8] + [t for t in wit_k if t < 10 and t % 8]
+
+        s2_t = torch.tensor(2.5, device=dev)
+        grad_div = (grad / s2_t).contiguous()
+        times = {
+            f"{prox_row} fresh": (
+                lambda: tb.chambolle_prox_blocked(g, lam_sapg, 25, return_state=False),
+                lambda: tb.chambolle_prox_blocked_plain(g, lam_sapg, 25, return_state=False),
+                lambda: tv_cuda.chambolle_prox_cuda(g, lam_sapg, 25, return_state=False)),
+            f"{prox_row} warm": (
+                lambda: tb.chambolle_prox_blocked(g, lam_salsa, 10, duals=(px0, py0)),
+                lambda: tb.chambolle_prox_blocked_plain(g, lam_salsa, 10, duals=(px0, py0)),
+                lambda: tv_cuda.chambolle_prox_cuda(g, lam_salsa, 10, duals=(px0, py0))),
+            step_row: (
+                lambda: fused_step_cuda.myula_prox_tv_blocked(x, prox, grad, z, *sc, s2_t),
+                lambda: fused_step_cuda.myula_prox_tv_blocked_plain(x, prox, grad, z, *sc, s2_t),
+                lambda: fused_step_cuda.myula_prox_tv(x, prox, grad_div, z, *sc)),
+        }
+        for name, (fk, fp, f1) in times.items():
+            mk, mp, m1 = cuda_ms(fk), cuda_ms(fp), cuda_ms(f1)
+            print(f"phase5 time {name} B={B} {M}x{N}: blocked {mk * 1e3:.1f} us, plain "
+                  f"{mp * 1e3:.1f} us, per-sweep kernel {m1 * 1e3:.1f} us per call [{tag}]",
+                  flush=True)
+            row = name.split()[0]
+            if B == 1 and name != f"{prox_row} warm":
+                stats[row].update(ms=mk, plain_ms=mp, per_sweep_ms=m1)
+    print(f"phase5 sweep counts of chains that stopped inside a pass: {exits}", flush=True)
+    check(exits, "no chain stopped inside a pass: the redo was not exercised")
+    return stats
+
+
+def step_rate(torch, problem, B, route, n_steps=200, warm=20):
+    """SAPG chain-iter/s of the step through `route` (None: the default)."""
     from semiblind_tv_tpu_torch.sapg.estimator import generator_noise, make_sapg_step
 
     dev = problem.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     noise = generator_noise(gen, problem.blur.dtype, dev)
-    step, aux = make_sapg_step(problem, B, spatial_fn=spatial_fn)
+    step, aux = make_sapg_step(problem, B, route=route)
     shape = (B,) + problem.blur.shape
     X = problem.y.expand(shape).contiguous()
     prox = aux["prox_b"](X, aux["lam"] * aux["theta0"])[0]
@@ -178,6 +342,126 @@ def step_rate(torch, problem, B, spatial_fn, n_steps=200, warm=20):
     return n_steps * B / dt
 
 
+def check_demo(results, sapg, salsa, problem, cfg, shape, tag):
+    import numpy as np
+
+    scalars = [results[k] for k in ("theta_EB", "sigma2_EB", "mse_db", "ssim", "snr_db",
+                                    "psnr_db")]
+    check(all(np.isfinite(scalars)), f"{tag}: non-finite results {scalars}")
+    check(np.all(np.isfinite(sapg.thetas)) and np.all(np.isfinite(sapg.sigma2s))
+          and np.all(np.isfinite(salsa.x)), f"{tag}: non-finite traces")
+    lo, hi = cfg.theta.box
+    check(lo <= results["theta_EB"] <= hi, f"{tag}: theta_EB outside its box")
+    s_lo, s_hi = (float(v) for v in problem.sigma2_box)
+    check(s_lo <= results["sigma2_EB"] <= s_hi, f"{tag}: sigma2_EB outside its box")
+    for s in cfg.psf_params:
+        v = results["psf_params_EB"][s.name]
+        check(s.box[0] <= v <= s.box[1], f"{tag}: {s.name}_EB outside its box")
+    check(results["mse_db"] < results["mse_db_observation"], f"{tag}: MAP no better than y")
+    check(salsa.x.shape == shape, f"{tag}: wrong MAP shape")
+
+
+def phase5_demos(torch, tv_cuda, fused_step_cuda, tb, run_demo, presets, tag):
+    """run_demo at 2048² (three families) and 1024²; launches per row."""
+    from semiblind_tv_tpu_torch.utils.images import load_image
+
+    gaussian_preset, laplace_preset, moffat_preset = presets
+    runs = [
+        ("gaussian w free, sigma-log-scale", STREAMED,
+         gaussian_preset(fix_w1=False, fix_w2=False), dict(sigma_log_scale=True)),
+        ("laplace", STREAMED, laplace_preset(), {}),
+        ("moffat", STREAMED, moffat_preset(), {}),
+        ("gaussian preset (w pinned)", TILED, gaussian_preset(), {}),
+    ]
+    launches = {"F": 0, "G": 0, "H": 0, "I": 0}
+    for name, size, cfg, extra in runs:
+        cfg = dataclasses.replace(cfg, image="synthetic",
+                                  sapg=dataclasses.replace(cfg.sapg, **DEMO_BUDGET, **extra))
+        image = load_image("synthetic", size=size)
+        tv_cuda.LAUNCHES = tv_cuda.FRESH_LAUNCHES = 0
+        fused_step_cuda.LAUNCHES = fused_step_cuda.BLOCKED_LAUNCHES = 0
+        tb.LAUNCHES = tb.FRESH_LAUNCHES = 0
+        t0 = time.perf_counter()
+        results, sapg, salsa, problem = run_demo(cfg, image, n_chains=1, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = {"blocked prox": tb.LAUNCHES, "blocked fresh": tb.FRESH_LAUNCHES,
+                  "blocked step": fused_step_cuda.BLOCKED_LAUNCHES, "A": tv_cuda.LAUNCHES,
+                  "B": fused_step_cuda.LAUNCHES}
+        print(f"phase5 demo {size}x{size} {name}: " + json.dumps(results), flush=True)
+        print(f"phase5 demo {size}x{size} {name}: launches {json.dumps(counts)}; sigma2_EB "
+              f"{results['sigma2_EB']:.4f} vs truth {results['sigma2_true']:.4f}; mse_db "
+              f"{results['mse_db']:.3f} vs y {results['mse_db_observation']:.3f}; SAPG "
+              f"{results['sapg_time_s']:.3f} s, SALSA {results['salsa_time_s']:.3f} s "
+              f"({results['salsa_iters']} iters), wall {wall:.3f} s [{tag}]", flush=True)
+        check(counts["blocked prox"] > 0 and counts["blocked step"] > 0,
+              f"{name}: the blocked kernels were not launched")
+        check(counts["A"] == 0 and counts["B"] == 0,
+              f"{name}: kernel A or B ran on the >512² path")
+        check_demo(results, sapg, salsa, problem, cfg, (size, size), name)
+        prox_row, step_row = ("F", "G") if size == TILED else ("H", "I")
+        launches[prox_row] += counts["blocked prox"]
+        launches[step_row] += counts["blocked step"]
+    return launches
+
+
+def phase5_card_vs_plain(torch, dev, run_demo, gaussian_preset, tag):
+    """The 1024² pipeline through the blocked kernels and through their
+    plain versions on the card, with the same injected noise."""
+    from semiblind_tv_tpu_torch.utils.images import load_image
+
+    cfg = gaussian_preset(fix_w1=False, fix_w2=False)
+    cfg = dataclasses.replace(
+        cfg, image="synthetic",
+        sapg=dataclasses.replace(cfg.sapg, samples=60, warmup=30, burn_in=48),
+        salsa=dataclasses.replace(cfg.salsa, outer_iters=60))
+    image = load_image("synthetic", size=TILED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    obs = torch.randn((TILED, TILED), generator=gen, device=dev)
+    draws = [torch.randn((1, TILED, TILED), generator=gen, device=dev) for _ in range(29 + 59)]
+
+    def injected():
+        it = iter(draws)
+        return lambda shape: next(it)
+
+    r_k, *_ = run_demo(cfg, image, device="cuda", obs_noise=obs, noise=injected())
+    r_p, *_ = run_demo(cfg, image, device="cuda", obs_noise=obs, noise=injected(), plain=True)
+    agree = {k: abs(r_k[k] - r_p[k]) / abs(r_p[k]) for k in ("theta_EB", "sigma2_EB", "mse_db")}
+    print(f"phase5 {TILED}x{TILED} blocked vs plain on the card, 60 SAPG + 60 SALSA: relative "
+          f"differences {json.dumps(agree)} (bound 1e-3); SAPG s blocked "
+          f"{r_k['sapg_time_s']:.3f} plain {r_p['sapg_time_s']:.3f} [{tag}]", flush=True)
+    for k, v in agree.items():
+        check(v <= 1e-3, f"blocked and plain disagree at {TILED}² on {k}: {v}")
+
+
+def phase5_rates(torch, dev, build_problem, gaussian_preset, salsa_tv, tag):
+    import numpy as np
+
+    from semiblind_tv_tpu_torch.utils.images import load_image
+
+    free = gaussian_preset(fix_w1=False, fix_w2=False)
+    for size, chains in ((TILED, (4,)), (STREAMED, (1, 2))):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        prob = build_problem(load_image("synthetic", size=size), free, gen, device=dev)
+        for B in chains:
+            rb = step_rate(torch, prob, B, None, n_steps=60, warm=5)
+            r1 = step_rate(torch, prob, B, "B", n_steps=60, warm=5)
+            rp = step_rate(torch, prob, B, "plain", n_steps=15, warm=2)
+            print(f"phase5 SAPG step {size}x{size} B={B} (w free): blocked {rb:.1f}, "
+                  f"kernel B {r1:.1f}, plain {rp:.1f} chain-iter/s [{tag}]", flush=True)
+    theta, sig2 = 0.05, float(prob.sigma_true) ** 2
+    kw = dict(tau=theta * sig2, mu=theta * 0.1, blur=prob.blur, tol=0.0)
+    salsa_tv(prob.y, prob.H_true, max_iter=10, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = salsa_tv(prob.y, prob.H_true, max_iter=100, **kw)
+    dt = time.perf_counter() - t0
+    check(res.n_iters == 100 and np.all(np.isfinite(res.x)), "SALSA 2048² run failed")
+    print(f"phase5 SALSA {STREAMED}x{STREAMED} 100 outer iterations (tol 0), blocked warm prox: "
+          f"{dt:.3f} s [{tag}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -190,11 +474,17 @@ def main() -> int:
     from semiblind_tv_tpu_torch import _build
     from semiblind_tv_tpu_torch.cli.run_demo import run_demo
     from semiblind_tv_tpu_torch.ops import fused_step_cuda, tv_cuda
-    from semiblind_tv_tpu_torch.runtime.config import gaussian_preset
+    from semiblind_tv_tpu_torch.ops import tv_blocked_cuda as tb
+    from semiblind_tv_tpu_torch.runtime.config import (
+        gaussian_preset,
+        laplace_preset,
+        moffat_preset,
+    )
     from semiblind_tv_tpu_torch.runtime.problem import build_problem
     from semiblind_tv_tpu_torch.solvers.salsa import salsa_tv
     from semiblind_tv_tpu_torch.utils.images import load_image
 
+    t_start = time.perf_counter()
     # ---- phase 0 ------------------------------------------------------------
     card = card_line()
     print(card, flush=True)
@@ -215,8 +505,13 @@ def main() -> int:
     _build.load_library()
     built = (f"nvcc {_build.BUILD_SECONDS:.2f} s" if _build.BUILD_SECONDS is not None
              else "cached library")
-    print(f"phase1 kernels built from {os.path.relpath(_build.SOURCE, HERE)}: {built}, "
+    sources = ", ".join(os.path.relpath(s, HERE) for s in _build.SOURCES)
+    print(f"phase1 kernels built from {sources}: {built}, "
           f"load {time.perf_counter() - t0:.2f} s", flush=True)
+    # ptxas: registers, shared memory and spills of every kernel
+    for line in _build.BUILD_LOG.splitlines():
+        if "Used" in line or "spill" in line:
+            print("phase1   " + line.strip(), flush=True)
 
     # ---- phase 2 ------------------------------------------------------------
     wheel_np = load_image(os.path.join(HERE, "data", "images", "wheel.png"))
@@ -229,24 +524,17 @@ def main() -> int:
         cfg, sapg=dataclasses.replace(cfg.sapg, samples=2000, warmup=1500, burn_in=1600)
     )
     tv_cuda.LAUNCHES = tv_cuda.FRESH_LAUNCHES = 0
-    fused_step_cuda.LAUNCHES = 0
+    fused_step_cuda.LAUNCHES = fused_step_cuda.BLOCKED_LAUNCHES = 0
+    tb.LAUNCHES = tb.FRESH_LAUNCHES = 0
     results, sapg, salsa, problem = run_demo(cfg, wheel_np, n_chains=1, device="cuda")
     launches = {"A1": tv_cuda.LAUNCHES - tv_cuda.FRESH_LAUNCHES,
                 "A2": tv_cuda.FRESH_LAUNCHES, "B": fused_step_cuda.LAUNCHES}
     print("phase3 results " + json.dumps(results), flush=True)
-    print(f"phase3 launches {json.dumps(launches)}", flush=True)
+    print(f"phase3 launches {json.dumps(launches)}; blocked "
+          f"{tb.LAUNCHES + fused_step_cuda.BLOCKED_LAUNCHES}", flush=True)
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
-    scalars = [results[k] for k in ("theta_EB", "sigma2_EB", "mse_db", "ssim", "snr_db",
-                                    "psnr_db")]
-    check(all(np.isfinite(scalars)), f"non-finite results {scalars}")
-    check(np.all(np.isfinite(sapg.thetas)) and np.all(np.isfinite(salsa.x)), "non-finite traces")
-    lo, hi = cfg.theta.box
-    check(lo <= results["theta_EB"] <= hi, "theta_EB outside its box")
-    s_lo, s_hi = (float(v) for v in problem.sigma2_box)
-    check(s_lo <= results["sigma2_EB"] <= s_hi, "sigma2_EB outside its box")
-    check(results["mse_db"] < results["mse_db_observation"], "MAP no better than y")
-    check(salsa.x.shape == (512, 512), "wrong MAP shape")
+    check_demo(results, sapg, salsa, problem, cfg, (512, 512), "512² demo")
 
     # the same pipeline at 64² on the card (kernels) and on the CPU (plain
     # versions), same injected noise: they must agree
@@ -284,7 +572,7 @@ def main() -> int:
     prob = build_problem(wheel_np, free, gen, device=dev)
     for B in (1, 16):
         rk = step_rate(torch, prob, B, None)
-        rp = step_rate(torch, prob, B, fused_step_cuda.myula_prox_tv_plain)
+        rp = step_rate(torch, prob, B, "plain")
         print(f"phase4 SAPG step 512x512 B={B}: kernel {rk:.1f} chain-iter/s, plain "
               f"{rp:.1f} chain-iter/s [{tag}]", flush=True)
     theta, sig2 = 0.05, float(prob.sigma_true) ** 2
@@ -296,19 +584,45 @@ def main() -> int:
     dt = time.perf_counter() - t0
     check(res.n_iters == 330 and np.all(np.isfinite(res.x)), "SALSA 330 run failed")
     print(f"phase4 SALSA 512x512 330 outer iterations (tol 0): {dt:.3f} s [{tag}]", flush=True)
+    print(f"phase0-4 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    src = os.path.relpath(_build.SOURCE, HERE)
+    # ---- phase 5 ------------------------------------------------------------
+    t5 = time.perf_counter()
+    big_stats = phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag)
+    big_launches = phase5_demos(torch, tv_cuda, fused_step_cuda, tb, run_demo,
+                                (gaussian_preset, laplace_preset, moffat_preset), tag)
+    phase5_card_vs_plain(torch, dev, run_demo, gaussian_preset, tag)
+    phase5_rates(torch, dev, build_problem, gaussian_preset, salsa_tv, tag)
+    for k, s in big_stats.items():
+        print(f"phase5 row {k}: blocked {s['ms'] * 1e3:.1f} us, plain "
+              f"{s['plain_ms'] * 1e3:.1f} us, per-sweep kernel {s['per_sweep_ms'] * 1e3:.1f} us "
+              f"at B=1 [{tag}]", flush=True)
+    print(f"phase5 took {time.perf_counter() - t5:.1f} s", flush=True)
+
+    src = KERNELS_SRC
     rows = [
-        ("chambolle_prox_cuda[warm]", "semiblind_tv_tpu/ops/tv_pallas.py:262", "A1"),
-        ("chambolle_prox_cuda[fresh]", "semiblind_tv_tpu/ops/tv_pallas.py:232", "A2"),
-        ("myula_prox_tv", "semiblind_tv_tpu/ops/fused_step_pallas.py:375", "B"),
+        ("chambolle_prox_cuda[warm]", src, "semiblind_tv_tpu/ops/tv_pallas.py:262", "A1",
+         stats, launches),
+        ("chambolle_prox_cuda[fresh]", src, "semiblind_tv_tpu/ops/tv_pallas.py:232", "A2",
+         stats, launches),
+        ("myula_prox_tv", src, "semiblind_tv_tpu/ops/fused_step_pallas.py:375", "B",
+         stats, launches),
+        ("chambolle_prox_blocked[1024²]", BLOCKED_SRC,
+         "semiblind_tv_tpu/ops/tv_pallas.py:560", "F", big_stats, big_launches),
+        ("myula_prox_tv_blocked[1024²]", BLOCKED_SRC,
+         "semiblind_tv_tpu/ops/fused_step_pallas.py:780", "G", big_stats, big_launches),
+        ("chambolle_prox_blocked[2048²]", BLOCKED_SRC,
+         "semiblind_tv_tpu/ops/tv_pallas.py:1180", "H", big_stats, big_launches),
+        ("myula_prox_tv_blocked[2048²]", BLOCKED_SRC,
+         "semiblind_tv_tpu/ops/fused_step_pallas.py:528", "I", big_stats, big_launches),
     ]
-    kernels = [
-        dict(name=n, route="cuda", source=src, replaces=r, launches=launches[k],
-             max_abs_err=stats[k]["max_abs_err"], ms=stats[k]["ms"],
-             plain_ms=stats[k]["plain_ms"])
-        for n, r, k in rows
-    ]
+    kernels = []
+    for n, s, r, k, st, ln in rows:
+        check(ln[k] > 0, f"kernel {k} was not launched on its path")
+        kernels.append(dict(name=n, route="cuda", source=s, replaces=r, launches=ln[k],
+                            max_abs_err=st[k]["max_abs_err"], ms=st[k]["ms"],
+                            plain_ms=st[k]["plain_ms"]))
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

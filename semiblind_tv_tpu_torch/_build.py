@@ -1,35 +1,41 @@
-"""Build and load the CUDA kernel library (`csrc/tv_kernels.cu`).
+"""Build and load the CUDA kernel library from every source under `csrc/`.
 
-The source has a plain C interface and includes no PyTorch header, so it is
-compiled by `nvcc` alone into `build/kernels/libsemiblind_tv_kernels.so`
-at the root of the checkout, at first use, and loaded with `ctypes`.  The
-build is redone whenever the source or the flags change (their hash is kept
-beside the library).  Nothing here runs at import time: the CPU tests import
-every module of the port on machines without `nvcc`.
+The sources have a plain C interface and include no PyTorch header, so
+`nvcc` alone compiles each `.cu` file to an object, all of them at once
+(one `nvcc` process per source, started together), and links the objects
+into `build/kernels/libsemiblind_tv_kernels.so` at the root of the
+checkout, at first use; the library is loaded with `ctypes`.  One hash over
+every `.cu` and `.cuh` file and the flags is kept beside the library, and
+the build is redone whenever it changes.  Nothing here runs at import time:
+the CPU tests import every module of the port on machines without `nvcc`.
 
 Flags: `sm_90a` (Hopper), `-O3`, and `--fmad=false` so that the kernels'
 elementwise arithmetic rounds like PyTorch's separate operations (a later
 performance change may lift it and re-measure).  `-Xptxas -v` makes the
-register and spill report part of `BUILD_LOG`.
+register, shared-memory and spill report of every kernel part of
+`BUILD_LOG`.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 
-__all__ = ["load_library", "BUILD_DIR", "SOURCE"]
+__all__ = ["load_library", "BUILD_DIR", "SOURCES"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "tv_kernels.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+SOURCES = tuple(sorted(glob.glob(os.path.join(_CSRC, "*.cu"))))
+_HEADERS = tuple(sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 _LIB_NAME = "libsemiblind_tv_kernels.so"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -42,13 +48,19 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sb_num_tiles": ([_I, _I], _I),
     "sb_chambolle_prox": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _F, _F, _P],
+        [_P] * 13 + [_I] * 4 + [_F, _F, _P],
         _I,
     ),
     "sb_myula_prox_tv": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _F, _F, _I, _P],
+        [_P] * 16 + [_I] * 4 + [_F, _F, _I, _P],
+        _I,
+    ),
+    "sb_chambolle_prox_blocked": (
+        [_P] * 12 + [_I] * 7 + [_F, _F, _P],
+        _I,
+    ),
+    "sb_myula_prox_tv_blocked": (
+        [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
         _I,
     ),
 }
@@ -66,15 +78,51 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for path in SOURCES + _HEADERS:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 
 
+def _build(lib_path: str) -> None:
+    """Compile every source in parallel, then link; raises on any failure."""
+    global BUILD_LOG, BUILD_SECONDS
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o") for s in SOURCES]
+    t0 = time.perf_counter()
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(SOURCES, objs))
+    ]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    tmp = f"{lib_path}.{tag}"
+    if not failed:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}")
+    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = "\n".join(logs)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError("\n".join(failed) + "\n" + BUILD_LOG)
+    os.replace(tmp, lib_path)
+
+
 def load_library() -> ctypes.CDLL:
-    """Build (if the source changed) and load the kernel library; cached."""
-    global _lib, BUILD_LOG, BUILD_SECONDS
+    """Build (if a source changed) and load the kernel library; cached."""
+    global _lib
     if _lib is not None:
         return _lib
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -86,17 +134,7 @@ def load_library() -> ctypes.CDLL:
         with open(stamp) as f:
             cached = f.read().strip() == digest
     if not cached:
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}"
-            )
-        os.replace(tmp, lib_path)
+        _build(lib_path)
         with open(stamp, "w") as f:
             f.write(digest)
     lib = ctypes.CDLL(lib_path)

@@ -10,6 +10,11 @@ Pipeline (run_Gaussian_demo.m:91-301):
 Usage:
   python -m semiblind_tv_tpu_torch.cli.run_demo --psf gaussian --size 512 \
       --samples 20000 --warmup 15000 --chains 1 --out results/gaussian
+  python -m semiblind_tv_tpu_torch.cli.run_demo --psf gaussian --no-fix-w \
+      --image synthetic --size 2048 --samples 2000 --warmup 1500 --sigma-log-scale
+
+Above 512² the SAPG step and both proxes run the temporally-blocked
+kernels (ops/tv_blocked_cuda.py, ops/fused_step_cuda.myula_prox_tv_blocked).
 
 `--device` defaults to `cuda`; a CUDA request on a machine without a card
 raises.  Flags of the JAX CLI that are not ported yet are absent.
@@ -52,6 +57,7 @@ def run_demo(
     device="cuda",
     obs_noise=None,
     noise: Optional[Callable] = None,
+    plain: bool = False,
 ):
     """Run the full experiment; returns (results dict, SAPGResult,
     SALSAResult, Problem).
@@ -60,14 +66,17 @@ def run_demo(
     observation noise and then the chains' noise.  `obs_noise` (a
     standard-normal field of the image's shape) and `noise` (a chain-noise
     source, see sapg/estimator.py) replace those draws — the tests inject
-    the JAX package's draws through them."""
+    the JAX package's draws through them.  plain=True runs the kernels'
+    plain PyTorch versions on any device (the kernel-vs-plain comparison
+    on the card)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     problem = build_problem(image, cfg, gen, dtype=dtype, device=device, noise=obs_noise)
 
     t0 = time.perf_counter()
-    sapg = run_sapg(problem, gen, n_chains=n_chains, noise=noise)
+    sapg = run_sapg(problem, gen, n_chains=n_chains, noise=noise,
+                    route="plain" if plain else None)
     sapg_time = time.perf_counter() - t0
 
     theta_EB = sapg.theta_EB
@@ -91,6 +100,7 @@ def run_demo(
         tv_iters=cfg.salsa.tv_iters,
         stop_criterion=cfg.salsa.stop_criterion,
         x_true=problem.x_true,
+        prox_route="plain" if plain else None,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -143,6 +153,13 @@ def main(argv=None):
     p.add_argument("--no-fix-w", action="store_true",
                    help="gaussian: estimate w1/w2 instead of pinning to truth")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--sigma-log-scale", action="store_true",
+                   help="log-space sigma^2 SA updates (an extension, off = the "
+                        "reference's linear dynamics): moves far faster from the wide "
+                        "BSNR-midpoint init on large images")
+    p.add_argument("--psf-log-scale", action="store_true",
+                   help="log-space SA updates of the free PSF parameters (an extension, "
+                        "off = the reference's linear dynamics)")
     args = p.parse_args(argv)
 
     kwargs = {}
@@ -156,6 +173,10 @@ def main(argv=None):
         sapg_over["burn_in"] = (args.samples * 80) // 100
     if args.warmup is not None:
         sapg_over["warmup"] = args.warmup
+    if args.sigma_log_scale:
+        sapg_over["sigma_log_scale"] = True
+    if args.psf_log_scale:
+        sapg_over["psf_log_scale"] = True
     if sapg_over:
         cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **sapg_over))
 

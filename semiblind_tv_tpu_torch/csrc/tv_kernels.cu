@@ -34,58 +34,9 @@
 // first CUDA error (cudaSuccess == 0).  Outputs and scratch are allocated by
 // the caller; nothing here allocates or synchronises.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int TX = 32;          // tile width (columns), one warp
-constexpr int TY = 8;           // tile height (rows)
-constexpr int NT = TX * TY;     // threads of a tile block
-constexpr int RT = 256;         // threads of a per-chain reduce block
-
-// Fixed-order shared-memory tree sum over the NT threads of a tile block.
-__device__ __forceinline__ float tile_sum(float v, float* sh) {
-  const int t = threadIdx.y * TX + threadIdx.x;
-  sh[t] = v;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (t < s) sh[t] += sh[t + s];
-    __syncthreads();
-  }
-  return sh[0];
-}
-
-// Fixed-order sum of one chain's nblk partials by one RT-thread block.
-__device__ __forceinline__ float chain_sum(const float* part, int nblk, float* sh) {
-  float s = 0.f;
-  for (int k = threadIdx.x; k < nblk; k += RT) s += part[k];
-  sh[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = RT / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
-    __syncthreads();
-  }
-  return sh[0];
-}
-
-// Neumann divergence of (p1, p2) at (i, j) of one (M, N) plane
-// (ops/tv.py::divergence): row 0 -> p1[0], rows 1..M-2 -> p1[i] - p1[i-1],
-// row M-1 -> -p1[M-1]; the same for columns with p2; then row + column.
-__device__ __forceinline__ float div_at(const float* __restrict__ p1,
-                                        const float* __restrict__ p2,
-                                        int i, int j, int M, int N) {
-  const size_t idx = (size_t)i * N + j;
-  float a;
-  if (i == 0) a = p1[idx];
-  else if (i == M - 1) a = -p1[idx];
-  else a = p1[idx] - p1[idx - N];
-  float b;
-  if (j == 0) b = p2[idx];
-  else if (j == N - 1) b = -p2[idx];
-  else b = p2[idx] - p2[idx - 1];
-  return a + b;
-}
 
 __global__ void init_state(int* __restrict__ iters, float* __restrict__ err,
                            int* __restrict__ active, int B) {
@@ -152,14 +103,6 @@ residual_reduce(const float* __restrict__ partials, int nblk,
   }
 }
 
-__global__ void __launch_bounds__(RT)
-sum_reduce(const float* __restrict__ partials, int nblk, float* __restrict__ out) {
-  __shared__ float sh[RT];
-  const int b = blockIdx.x;
-  const float s = chain_sum(partials + (size_t)b * nblk, nblk, sh);
-  if (threadIdx.x == 0) out[b] = s;
-}
-
 // f = g − λ·div p from buffer iters[b] % 2; optionally also the final duals.
 __global__ void __launch_bounds__(NT)
 assemble(const float* __restrict__ g, const float* __restrict__ lam_ptr,
@@ -182,57 +125,6 @@ assemble(const float* __restrict__ g, const float* __restrict__ lam_ptr,
     px_out[off + idx] = pxb[idx];
     py_out[off + idx] = pyb[idx];
   }
-}
-
-// MYULA update at one pixel, in the operation order of
-// samplers/myula.py::myula_kernel_step.
-__device__ __forceinline__ float myula_at(const float* __restrict__ x,
-                                          const float* __restrict__ prox,
-                                          const float* __restrict__ grad,
-                                          const float* __restrict__ z, size_t idx,
-                                          float gamma, float lam, float s2g,
-                                          int positivity) {
-  const float xv = x[idx];
-  const float v = xv + gamma * (prox[idx] - xv) / lam - gamma * grad[idx] + s2g * z[idx];
-  return positivity ? fabsf(v) : v;
-}
-
-// xn = [abs](x + γ(prox−x)/λ − γ·gradF + √(2γ)·Z), plus per-tile partials of
-// the circular-difference TV of xn.  The two backward neighbours of xn are
-// recomputed from the inputs (same operations, same result) instead of read
-// back, so one launch gives both.
-__global__ void __launch_bounds__(NT)
-myula_prologue(const float* __restrict__ x, const float* __restrict__ prox,
-               const float* __restrict__ grad, const float* __restrict__ z,
-               const float* __restrict__ gamma_ptr, const float* __restrict__ lam_ptr,
-               float* __restrict__ xn, float* __restrict__ partials,
-               int M, int N, int positivity) {
-  __shared__ float sh[NT];
-  const int b = blockIdx.z;
-  const size_t off = (size_t)b * M * N;
-  const float gamma = *gamma_ptr;
-  const float lam = *lam_ptr;
-  const float s2g = sqrtf(2.0f * gamma);
-  const int j = blockIdx.x * TX + threadIdx.x;
-  const int i = blockIdx.y * TY + threadIdx.y;
-  float t = 0.f;
-  if (i < M && j < N) {
-    const float* xb = x + off;
-    const float* pb = prox + off;
-    const float* gb = grad + off;
-    const float* zb = z + off;
-    const size_t idx = (size_t)i * N + j;
-    const float c = myula_at(xb, pb, gb, zb, idx, gamma, lam, s2g, positivity);
-    xn[off + idx] = c;
-    const size_t left = (size_t)i * N + (j == 0 ? N - 1 : j - 1);
-    const size_t up = (size_t)(i == 0 ? M - 1 : i - 1) * N + j;
-    const float dh = c - myula_at(xb, pb, gb, zb, left, gamma, lam, s2g, positivity);
-    const float dv = c - myula_at(xb, pb, gb, zb, up, gamma, lam, s2g, positivity);
-    t = sqrtf(dh * dh + dv * dv);
-  }
-  const float s = tile_sum(t, sh);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    partials[(size_t)b * gridDim.x * gridDim.y + blockIdx.y * gridDim.x + blockIdx.x] = s;
 }
 
 // The sweep/reduce loop from the state in buffer 0, then assembly.
@@ -307,7 +199,7 @@ int sb_myula_prox_tv(const float* x, const float* prox, const float* grad,
   const int nblk = (int)(grid.x * grid.y);
   const size_t bytes = (size_t)B * M * N * sizeof(float);
   cudaError_t e;
-  myula_prologue<<<grid, block, 0, st>>>(x, prox, grad, z, gamma, lam, xn,
+  myula_prologue<<<grid, block, 0, st>>>(x, prox, grad, z, gamma, lam, nullptr, xn,
                                          partials, M, N, positivity);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   sum_reduce<<<B, RT, 0, st>>>(partials, nblk, tv);

@@ -60,10 +60,10 @@ class SAPGConfig:
     fuse_irdft: bool = False        # not ported (raises when True)
     in_kernel_rng: bool = False     # not ported (raises when True)
     track_traces: bool = True       # record per-iteration diagnostics
-    theta_log_scale: bool = False   # not ported (raises when True)
+    theta_log_scale: bool = False   # Algorithm-1 log-θ updates
     positivity: bool = True         # abs() projection in the MYULA step
-    sigma_log_scale: bool = False   # not ported (raises when True)
-    psf_log_scale: bool = False     # not ported (raises when True)
+    sigma_log_scale: bool = False   # log-space σ² updates (extension)
+    psf_log_scale: bool = False     # log-space PSF-parameter updates (extension)
     track_posterior_moments: bool = False  # not ported (raises when True)
 
     @property
@@ -186,8 +186,8 @@ def isotropic_preset(
 ) -> DemoConfig:
     """SIAM 4.2.1 capability: isotropic Gaussian with one unknown width,
     Algorithm-1 style SAPG (log-theta, no positivity projection), sigma²
-    pinned.  The port has the configuration but not yet its PSF family or
-    its log-theta updates (`build_problem` and `run_sapg` raise)."""
+    pinned.  The port has the configuration and the log-theta updates but
+    not yet its PSF family (`build_problem` raises)."""
     return DemoConfig(
         psf="isotropic_gaussian",
         theta=ParamSpec("theta", init=0.01, box=(1e-3, 1.0), step_scale=1.0, sign=+1.0),

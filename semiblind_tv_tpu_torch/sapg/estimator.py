@@ -15,8 +15,17 @@ Per iteration: one rfft2 and one irfft2 (the scan carries rfft2(X)), the
 hyper-gradients by Parseval on the half-spectrum, the OTFs of the PSF and
 its free-parameter gradients by small matmuls (hoisted out of the loop when
 every PSF parameter is fixed), and the spatial segment — MYULA update,
-25-sweep Chambolle prox, TV norm — through
-ops/fused_step_cuda.myula_prox_tv (kernel B on a CUDA tensor).
+25-sweep Chambolle prox, TV norm — through the kernel that
+`resolve_step_route` picks for the image size: kernel B
+(ops/fused_step_cuda.myula_prox_tv) up to 512², the blocked kernel
+(myula_prox_tv_blocked) above, in the form of the JAX package's tiled
+kernel G up to 1024² and of its streamed kernel I beyond (gradF's /σ² in
+the kernel).  `resolve_prox_route` picks the initial (and unfused) prox
+the same way.  On the CPU both take the plain versions.
+
+Options ported from the JAX package: sigma_log_scale, psf_log_scale and
+theta_log_scale (Algorithm-1: SA updates in log space, clipped there; the
+θ EB estimate is then the geometric mean of the window).
 
 Chains live on the leading dimension; the per-chain SA statistics are
 averaged before the hyperparameter update.  θ, σ² and the PSF parameters
@@ -37,9 +46,14 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from semiblind_tv_tpu_torch.ops.fused_step_cuda import myula_prox_tv
+from semiblind_tv_tpu_torch.ops.fused_step_cuda import (
+    myula_prox_tv,
+    myula_prox_tv_blocked,
+    myula_prox_tv_plain,
+)
 from semiblind_tv_tpu_torch.ops.tv import tv_norm
-from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda
+from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_prox_blocked
+from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain
 from semiblind_tv_tpu_torch.runtime.problem import Problem
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
@@ -53,6 +67,8 @@ __all__ = [
     "run_segmented_scan",
     "assemble_result",
     "generator_noise",
+    "resolve_step_route",
+    "resolve_prox_route",
 ]
 
 
@@ -93,15 +109,19 @@ class SAPGResult:
         return float(self.thetas[-1])
 
 
-def _running_window_stats(trace: np.ndarray, burn_in: int):
+def _running_window_stats(trace: np.ndarray, burn_in: int, log_scale: bool = False):
     """Running means over [burnIn, ii] and their relative-change tolerances.
 
     trace is 0-based with trace[0] the init (MATLAB index 1).  Returns
     (mean_trace, tol_trace, eb) with mean_trace of length len-burn_in and
-    tol_trace of length len (zeros before the window has two entries)."""
+    tol_trace of length len (zeros before the window has two entries).
+    log_scale: average log(trace) and exponentiate — the Algorithm-1 EB
+    estimate exp(mean(eta)) (SALSA/SAPG_algorithm_1.m:227)."""
     n = len(trace)
-    window = trace[burn_in - 1:]
+    window = np.log(trace[burn_in - 1:]) if log_scale else trace[burn_in - 1:]
     running = np.cumsum(window) / np.arange(1, len(window) + 1)
+    if log_scale:
+        running = np.exp(running)
     eb = float(running[-1])
     mean_trace = running[1:]
     tol = np.zeros(n)
@@ -118,10 +138,30 @@ def generator_noise(generator: torch.Generator, dtype, device) -> Callable:
     return draw
 
 
-_NOT_PORTED = (
-    "sigma_log_scale", "psf_log_scale", "theta_log_scale",
-    "track_posterior_moments", "in_kernel_rng", "fuse_dft", "fuse_irdft",
-)
+_NOT_PORTED = ("track_posterior_moments", "in_kernel_rng", "fuse_dft", "fuse_irdft")
+
+
+def resolve_step_route(shape, device) -> str:
+    """The spatial segment's kernel for an (M, N) image on `device`, by
+    the JAX package's size ladder (resolve_use_fused / resolve_use_tiled_fused
+    / resolve_use_streamed_fused): 'B' up to 512² (myula_prox_tv), 'G' up
+    to 1024² pixels and 'I' above (both myula_prox_tv_blocked; 'I' takes
+    the raw irfft and σ², as myula_prox_tv_streamed is called); 'plain' on
+    the CPU.  Launches nothing."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return {None: "B", "tiled": "G", "streamed": "I"}[blocked_rung(shape)]
+
+
+def resolve_prox_route(shape, device) -> str:
+    """The fresh-dual prox for an (M, N) image on `device` (the initial
+    SAPG prox, and the step's prox when use_fused_step is False), by the
+    ladder of the JAX package's prox_b: 'A2' up to 512²
+    (chambolle_prox_cuda), 'F' up to 1024² pixels and 'H' above (both
+    chambolle_prox_blocked); 'plain' on the CPU.  Launches nothing."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return {None: "A2", "tiled": "F", "streamed": "H"}[blocked_rung(shape)]
 
 
 def _check_ported(cfg) -> None:
@@ -140,23 +180,27 @@ def make_general_sapg_step(
     blur,
     cfg,
     sigma_fix: bool,
-    spatial_fn: Optional[Callable] = None,
+    route: Optional[str] = None,
 ):
     """Build the per-iteration SAPG step as a function of (carry, ii, consts,
     Z) with consts = dict(yhat, gam, lam, sigma2_lo, sigma2_hi, sigma2_init)
     and Z the step's (B, M, N) standard-normal field.
 
     carry = (X, Xhat, prox, theta, sigma2, params); the step returns
-    (carry, trace) with trace a dict of 0-d device tensors.  `spatial_fn`
-    replaces myula_prox_tv (same signature) — the chip smoke test passes the
-    plain version to time it against the kernel."""
+    (carry, trace) with trace a dict of 0-d device tensors.  `route`
+    overrides resolve_step_route ('plain', 'B', 'G' or 'I'); with 'plain'
+    the prox takes its plain version too — the chip smoke test compares the
+    kernels with the plain versions on the card this way."""
     _check_ported(cfg)
     sapg = cfg.sapg
     dtype = blur.dtype
     device = blur.device
     d = blur.dim
     w = blur.weights
-    spatial = myula_prox_tv if spatial_fn is None else spatial_fn
+    route = resolve_step_route(blur.shape, device) if route is None else route
+    if route not in ("plain", "B", "G", "I"):
+        raise ValueError(f"unknown step route {route!r}")
+    prox_route = "plain" if route == "plain" else resolve_prox_route(blur.shape, device)
     fused = sapg.use_fused_step is not False
 
     theta_spec = cfg.theta
@@ -185,21 +229,28 @@ def make_general_sapg_step(
 
     tv_b = tv_norm
 
+    prox_fn = {"plain": chambolle_prox_plain, "A2": chambolle_prox_cuda,
+               "F": chambolle_prox_blocked, "H": chambolle_prox_blocked}[prox_route]
+
     def prox_b(X, lam_theta):
-        # kernel A, fresh form: the SAPG prox starts from zero duals and
-        # discards them
-        return chambolle_prox_cuda(
+        # the fresh form: the SAPG prox starts from zero duals and discards them
+        return prox_fn(
             X, lam_theta, sapg.chambolle_iters,
             tau=sapg.chambolle_tau, tol=sapg.chambolle_tol, return_state=False,
         )
 
-    def spatial_segment(X, prox, gradF, Z, gam, lam, lam_theta, positivity):
+    def spatial_segment(X, prox, grad_raw, sigma2, Z, gam, lam, lam_theta, positivity):
+        """The MYULA update with gradF = grad_raw/σ², the prox and the TV."""
+        kw = dict(n_sweeps=sapg.chambolle_iters, tau=sapg.chambolle_tau,
+                  tol=sapg.chambolle_tol, positivity=positivity)
+        if fused and route == "I":
+            return myula_prox_tv_blocked(X, prox, grad_raw, Z, gam, lam, lam_theta, sigma2, **kw)
+        gradF = grad_raw / sigma2
+        if fused and route == "G":
+            return myula_prox_tv_blocked(X, prox, gradF, Z, gam, lam, lam_theta, **kw)
         if fused:
-            return spatial(
-                X, prox, gradF, Z, gam, lam, lam_theta,
-                n_sweeps=sapg.chambolle_iters, tau=sapg.chambolle_tau,
-                tol=sapg.chambolle_tol, positivity=positivity,
-            )
+            spatial = myula_prox_tv if route == "B" else myula_prox_tv_plain
+            return spatial(X, prox, gradF, Z, gam, lam, lam_theta, **kw)
         Xn = myula_kernel_step(X, prox, gradF, gam, lam, Z, positivity)
         proxn, _ = prox_b(Xn, lam_theta)
         return Xn, proxn, tv_b(Xn)
@@ -208,6 +259,9 @@ def make_general_sapg_step(
         return torch.tensor(v, dtype=dtype, device=device)
 
     fixed_vals = {s.name: s.clip(as_t(s.true_value)) for s in psf_specs if s.fix}
+    log_box = {s.name: (torch.log(as_t(s.box[0])), torch.log(as_t(s.box[1])))
+               for s in psf_specs}
+    log_theta_box = (torch.log(as_t(theta_spec.box[0])), torch.log(as_t(theta_spec.box[1])))
     theta0_c = as_t(theta_spec.init)
     params0_c = {k: as_t(v) for k, v in cfg.init_psf_params().items()}
     H0_c = blur.otf_host(model.kernel(params0_c))
@@ -218,11 +272,11 @@ def make_general_sapg_step(
         X, Xhat, prox, theta, sigma2, params = carry
         H, dHs = (H0_c, {}) if all_fixed else otfs(params)
         Rhat = H[None] * Xhat - yhat[None]
-        gradF = blur.irfft(torch.conj(H)[None] * Rhat) / sigma2
         # prox lag: the MYULA update uses the prox of the previous iterate,
         # and the new prox is taken at the current (pre-update) θ
         Xn, proxn, tv = spatial_segment(
-            X, prox, gradF, Z, gam, lam, lam * theta, sapg.positivity
+            X, prox, blur.irfft(torch.conj(H)[None] * Rhat), sigma2, Z, gam, lam,
+            lam * theta, sapg.positivity,
         )
         Xhatn = blur.rfft(Xn)
         Rn = H[None] * Xhatn - yhat[None]
@@ -233,16 +287,43 @@ def make_general_sapg_step(
         G_p = {n: torch.mean(pdot(dHs[n][None] * Xhatn, Rn) / sigma2) for n in free_names}
 
         delta_i = d_scale * float(ii) ** (-sapg.d_exp) / d
-        theta_n = theta_spec.clip(theta + theta_spec.step_scale * delta_i * G_t)
+        if sapg.theta_log_scale:
+            # Algorithm-1: eta = log θ, eta += δ·G_θ·θ, clipped in eta-space
+            # (SALSA/SAPG_algorithm_1.m:180-182)
+            eta_n = torch.clamp(
+                torch.log(theta) + theta_spec.step_scale * delta_i * G_t * theta,
+                *log_theta_box,
+            )
+            theta_n = torch.exp(eta_n)
+        else:
+            theta_n = theta_spec.clip(theta + theta_spec.step_scale * delta_i * G_t)
         params_n = {}
         for s in psf_specs:
             if s.fix:
                 params_n[s.name] = fixed_vals[s.name]
+            elif sapg.psf_log_scale:
+                # log-space update with the chain-rule factor p, clipped in
+                # log space (an extension of the JAX package, opt-in)
+                p = params[s.name]
+                lp_n = torch.clamp(
+                    torch.log(p) + s.sign * s.step_scale * delta_i * G_p[s.name] * p,
+                    *log_box[s.name],
+                )
+                params_n[s.name] = torch.exp(lp_n)
             else:
                 cand = params[s.name] + s.sign * s.step_scale * delta_i * G_p[s.name]
                 params_n[s.name] = s.clip(cand)
         if sigma_fix:
             sigma_n = consts["sigma2_init"]
+        elif sapg.sigma_log_scale:
+            # log σ² with the chain-rule factor σ², clipped in log space (an
+            # extension of the JAX package, opt-in: it moves far faster from
+            # the wide BSNR-midpoint init at large d)
+            lsig_n = torch.clamp(
+                torch.log(sigma2) + cfg.sigma_step_scale * delta_i * G_s * sigma2,
+                torch.log(consts["sigma2_lo"]), torch.log(consts["sigma2_hi"]),
+            )
+            sigma_n = torch.exp(lsig_n)
         else:
             sigma_n = torch.clamp(
                 sigma2 + cfg.sigma_step_scale * delta_i * G_s,
@@ -271,8 +352,10 @@ def make_general_sapg_step(
         sigma0 = consts["sigma2_init"]
         X, Xhat, prox = carry
         Rhat = H0_c[None] * Xhat - yhat[None]
-        gradF = blur.irfft(torch.conj(H0_c)[None] * Rhat) / sigma0
-        Xn, proxn, tv = spatial_segment(X, prox, gradF, Z, gam, lam, lam * theta0_c, True)
+        Xn, proxn, tv = spatial_segment(
+            X, prox, blur.irfft(torch.conj(H0_c)[None] * Rhat), sigma0, Z, gam, lam,
+            lam * theta0_c, True,
+        )
         Xhatn = blur.rfft(Xn)
         res2 = pnorm2(H0_c[None] * Xhatn - yhat[None])
         logpi = torch.mean(-res2 / (2.0 * sigma0) - theta0_c * tv)
@@ -287,6 +370,8 @@ def make_general_sapg_step(
         theta0=theta0_c,
         params0=params0_c,
         H0=H0_c,
+        route=route,
+        prox_route=prox_route,
     )
     return step, aux
 
@@ -303,12 +388,13 @@ def problem_consts(problem: Problem):
     )
 
 
-def make_sapg_step(problem: Problem, n_chains: int, spatial_fn: Optional[Callable] = None):
-    """Per-problem SAPG step: (carry, ii, Z) -> (carry, trace)."""
+def make_sapg_step(problem: Problem, n_chains: int, route: Optional[str] = None):
+    """Per-problem SAPG step: (carry, ii, Z) -> (carry, trace); `route` as in
+    make_general_sapg_step."""
     cfg = problem.cfg
     sigma_spec = problem.sigma_spec()
     gstep, aux = make_general_sapg_step(
-        problem.model, problem.blur, cfg, sigma_fix=sigma_spec.fix, spatial_fn=spatial_fn,
+        problem.model, problem.blur, cfg, sigma_fix=sigma_spec.fix, route=route,
     )
     consts = problem_consts(problem)
 
@@ -368,7 +454,9 @@ def assemble_result(
     sigma2s = full_trace("sigma2", float(problem.sigma2_init))
     psf_traces = {n: full_trace(n, float(params0[n])) for n in psf_names}
 
-    mean_thetas, tol_thetas, theta_EB = _running_window_stats(thetas, burn_in)
+    mean_thetas, tol_thetas, theta_EB = _running_window_stats(
+        thetas, burn_in, log_scale=sapg.theta_log_scale
+    )
     mean_sigmas, tol_sigmas, sigma_EB = _running_window_stats(sigma2s, burn_in)
     mean_psf, tol_psf, psf_EB = {}, {}, {}
     for n in psf_names:
@@ -418,13 +506,15 @@ def run_sapg(
     noise: Optional[Callable] = None,
     nan_guard: bool = True,
     mesh=None,
+    route: Optional[str] = None,
 ) -> SAPGResult:
     """Run warm-up + SAPG on the problem's device and assemble the full
     diagnostics bundle.
 
     noise: the noise source (see the module docstring); by default standard
     normals from `generator` (a torch.Generator on the problem's device).
-    mesh: the JAX package's sharded path; not ported yet (raises)."""
+    mesh: the JAX package's sharded path; not ported yet (raises).
+    route: overrides the kernel route (make_general_sapg_step)."""
     if mesh is not None:
         raise NotImplementedError("the sharded (mesh) SAPG path is not ported yet")
     cfg = problem.cfg
@@ -437,7 +527,7 @@ def run_sapg(
             raise ValueError("run_sapg needs a generator or a noise source")
         noise = generator_noise(generator, dtype, device)
 
-    step, aux = make_sapg_step(problem, n_chains)
+    step, aux = make_sapg_step(problem, n_chains, route=route)
     psf_names = aux["psf_names"]
     prox_b, tv_b, pnorm2 = aux["prox_b"], aux["tv_b"], aux["pnorm2"]
     warm_step, consts = aux["warm_step"], aux["consts"]

@@ -4,8 +4,9 @@
 Per outer iteration (SALSA_v2.m:423-440):
   u ← prox_{τ/µ·TV}(x − b)          Chambolle, `tv_iters` sweeps, duals warm-
                                     started across outer iterations
-                                    (SALSA_v2.m:429): kernel A's warm form
-                                    (ops/tv_cuda.py) on a CUDA tensor
+                                    (SALSA_v2.m:429): on a CUDA tensor the
+                                    warm form of the kernel that
+                                    `resolve_salsa_prox_mode` picks
   x ← irfft2((conj(H)·ŷ + µ·rfft2(u + b)) / (|H|² + µ))
   b ← b + u − x
 Stop criteria 1/2/3 (SALSA_v2.m:455-469), evaluated from the second outer
@@ -20,16 +21,17 @@ the result equals running all `max_iter` iterations.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from semiblind_tv_tpu_torch.ops.fourier import BlurOperator
 from semiblind_tv_tpu_torch.ops.tv import tv_norm
-from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda
+from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_prox_blocked
+from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain
 
-__all__ = ["SALSAResult", "salsa_tv", "soft_threshold"]
+__all__ = ["SALSAResult", "salsa_tv", "soft_threshold", "resolve_salsa_prox_mode"]
 
 _CHECK_EVERY = 32  # outer iterations between host reads of the stop flag
 
@@ -39,6 +41,25 @@ def soft_threshold(x, T):
     T = torch.as_tensor(T, dtype=x.dtype, device=x.device)
     y = torch.clamp(torch.abs(x) - T, min=0.0)
     return torch.where(T == 0, x, y / (y + T) * x)
+
+
+def resolve_salsa_prox_mode(shape, device) -> str:
+    """The warm-dual prox of the SALSA inner solve for an (M, N) image on
+    `device`, by the size ladder of the JAX package's resolve_salsa_prox_mode:
+    'A1' up to 512² (chambolle_prox_cuda, the counterpart of the whole-image
+    kernel), 'F' up to 1024² pixels and 'H' above (chambolle_prox_blocked,
+    the counterpart of the tiled and streamed kernels); 'plain' on the CPU.
+    Launches nothing.
+
+    The blocked kernel sums the early-exit residual over its tiles in
+    another order than the plain version.  At a fixed sweep count its f is
+    bit-equal to the plain prox's, but a residual on the edge of tol can
+    stop on another sweep, and across many warm-started outer iterations
+    that drifts: the JAX package's streamed SALSA at 2048² ended about 3e-4
+    relative from the XLA prox after 100 outer iterations (RESULTS.md r5)."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return {None: "A1", "tiled": "F", "streamed": "H"}[blocked_rung(shape)]
 
 
 @dataclasses.dataclass
@@ -65,12 +86,18 @@ def salsa_tv(
     x_true=None,
     chambolle_tau: float = 0.249,
     chambolle_tol: float = 1e-3,
+    prox_route: Optional[str] = None,
 ) -> SALSAResult:
     """TV-regularised SALSA with warm-started Chambolle duals, x0 = 0
-    (SALSA_v2.m:379, TVINITIALIZATION=1), on blur's device and dtype."""
+    (SALSA_v2.m:379, TVINITIALIZATION=1), on blur's device and dtype.
+    prox_route overrides resolve_salsa_prox_mode ('plain', 'A1', 'F', 'H')."""
     if stop_criterion not in (1, 2, 3):
         raise ValueError(f"stop_criterion must be 1, 2 or 3, got {stop_criterion}")
     dtype, device = blur.dtype, blur.device
+    if prox_route is None:
+        prox_route = resolve_salsa_prox_mode(blur.shape, device)
+    prox = {"plain": chambolle_prox_plain, "A1": chambolle_prox_cuda,
+            "F": chambolle_prox_blocked, "H": chambolle_prox_blocked}[prox_route]
     d = blur.dim
     w = blur.weights
     y = torch.as_tensor(y, dtype=dtype).to(device)
@@ -105,7 +132,7 @@ def salsa_tv(
     ran = 0
     for k in range(max_iter):
         active = torch.logical_not(done)
-        un, st = chambolle_prox_cuda(
+        un, st = prox(
             x - bu, thresh, tv_iters, tau=chambolle_tau, tol=chambolle_tol,
             duals=(pux, puy),
         )

@@ -9,13 +9,19 @@ port's dependencies:
 Inputs are float32; the kernels are built with --fmad=false, so f, the
 duals, xn and proxn agree with the plain versions to 1e-5 of their largest
 magnitude at a fixed sweep count (tol=0) — the residual and TV sums are
-taken in another order — and the early exit stops on the same sweep.
+taken in another order — and the early exit stops on the same sweep.  The
+blocked kernel (csrc/tv_blocked.cu) runs at shapes of several tiles with
+ragged edges, and stops each chain on the same sweep as the plain version
+and as its schedule's emulation on the CPU
+(ops/tv_blocked_cuda.chambolle_prox_blocked_emulated).  λ goes in as a
+device tensor: PyTorch's CUDA division by a Python number multiplies by
+its reciprocal, which the kernel does not.
 """
 import numpy as np
 import pytest
 import torch
 
-from semiblind_tv_tpu_torch.ops import fused_step_cuda, tv_cuda
+from semiblind_tv_tpu_torch.ops import fused_step_cuda, tv_blocked_cuda, tv_cuda
 
 REL = 1e-5
 
@@ -28,7 +34,14 @@ def cuda_device():
 
 
 def _rel_err(a, b):
-    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    """The largest per-chain relative deviation (a chain of small values is
+    held to its own scale; (B,) vectors element by element)."""
+    if a.ndim < 2:
+        a, b = a.reshape(-1, 1), b.reshape(-1, 1)
+    elif a.ndim == 2:
+        a, b = a[None], b[None]
+    d = (a - b).abs().flatten(1).amax(1)
+    return float((d / b.abs().flatten(1).amax(1).clamp_min(1e-30)).max())
 
 
 def _field(rng, shape, dev, scale=1.0):
@@ -84,6 +97,72 @@ def test_kernel_b_matches_plain(cuda_device, positivity):
         assert _rel_err(a, b) <= REL
 
 
+@pytest.mark.parametrize("shape", [(1, 200, 300), (2, 130, 70), (3, 75, 64)])
+@pytest.mark.parametrize("warm", [False, True])
+def test_blocked_prox_matches_plain(cuda_device, shape, warm):
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(cuda_device)
+    duals = (_field(rng, shape, cuda_device, 0.1), _field(rng, shape, cuda_device, 0.1)) \
+        if warm else None
+    lam = torch.tensor(20.0, device=cuda_device)
+    before = tv_blocked_cuda.LAUNCHES
+    f, st = tv_blocked_cuda.chambolle_prox_blocked(g, lam, 25, tol=0.0, duals=duals,
+                                                   return_state=warm)
+    pf, pst = tv_blocked_cuda.chambolle_prox_blocked_plain(g, lam, 25, tol=0.0, duals=duals,
+                                                           return_state=warm)
+    torch.cuda.synchronize()
+    assert tv_blocked_cuda.LAUNCHES == before + 1
+    assert _rel_err(f, pf) <= REL
+    assert _rel_err(st.px, pst.px) <= REL and _rel_err(st.py, pst.py) <= REL
+    assert st.iters.tolist() == pst.iters.tolist() == [25] * shape[0]
+
+
+def test_blocked_prox_early_exit_matches_plain_and_emulation(cuda_device):
+    """Chains that stop at sweep 1, inside a pass (the redo) and never."""
+    rng = np.random.default_rng(7)
+    base = rng.standard_normal((96, 160)).astype(np.float32)
+    scales = np.array([1e-7, 0.0, 1.0], dtype=np.float32)
+    # a scale that stops inside the second pass, found with the plain version
+    logs = np.linspace(-6, 0, 121, dtype=np.float32)
+    probe = torch.from_numpy(base[None] * 10.0 ** logs[:, None, None]).to(cuda_device)
+    its = tv_blocked_cuda.chambolle_prox_blocked_plain(probe, 0.5, 25)[1].iters.cpu().numpy()
+    mid = np.nonzero((its > 8) & (its < 16))[0]
+    assert mid.size, its
+    scales[1] = 10.0 ** logs[mid[mid.size // 2]]
+    g = torch.from_numpy(base[None] * scales[:, None, None]).to(cuda_device)
+    f, st = tv_blocked_cuda.chambolle_prox_blocked(g, 0.5, 25)
+    pf, pst = tv_blocked_cuda.chambolle_prox_blocked_plain(g, 0.5, 25)
+    ef, est = tv_blocked_cuda.chambolle_prox_blocked_emulated(g.cpu(), 0.5, 25)
+    torch.cuda.synchronize()
+    assert st.iters.tolist() == pst.iters.tolist() == est.iters.tolist()
+    assert st.iters[0] == 1 and 8 < st.iters[1] < 16 and st.iters[2] == 25
+    assert _rel_err(f, pf) <= REL
+    # PyTorch's CPU and CUDA elementwise operations differ in the last bit
+    # now and then, so the CPU emulation is held to the kernel by tolerance
+    assert _rel_err(f.cpu(), ef) <= REL
+    np.testing.assert_allclose(st.err.cpu().numpy(), est.err.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("sigma2,positivity", [(1.0, True), (2.5, False), (0.7, True)])
+def test_blocked_fused_step_matches_plain(cuda_device, sigma2, positivity):
+    rng = np.random.default_rng(3)
+    shape = (2, 150, 210)
+    x = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(cuda_device)
+    prox = x + _field(rng, shape, cuda_device, 0.1)
+    grad = _field(rng, shape, cuda_device, 0.01)
+    z = _field(rng, shape, cuda_device)
+    args = tuple(torch.tensor(v, device=cuda_device) for v in (1.9, 2.0, 0.02, sigma2))
+    before = fused_step_cuda.BLOCKED_LAUNCHES
+    k = fused_step_cuda.myula_prox_tv_blocked(x, prox, grad, z, *args, n_sweeps=25, tol=0.0,
+                                              positivity=positivity)
+    p = fused_step_cuda.myula_prox_tv_blocked_plain(x, prox, grad, z, *args, n_sweeps=25,
+                                                    tol=0.0, positivity=positivity)
+    torch.cuda.synchronize()
+    assert fused_step_cuda.BLOCKED_LAUNCHES == before + 1
+    for a, b in zip(k, p):
+        assert _rel_err(a, b) <= REL
+
+
 def test_wrappers_raise_on_bad_inputs(cuda_device):
     g = torch.zeros((1, 16, 16), device=cuda_device)
     with pytest.raises(TypeError):
@@ -92,3 +171,7 @@ def test_wrappers_raise_on_bad_inputs(cuda_device):
         tv_cuda.chambolle_prox_cuda(g.transpose(1, 2), 0.5, 5)
     with pytest.raises(ValueError):
         tv_cuda.chambolle_prox_cuda(g, torch.tensor(0.5), 5)  # λ on the host
+    with pytest.raises(TypeError):
+        tv_blocked_cuda.chambolle_prox_blocked(g.double(), 0.5, 5)
+    with pytest.raises(ValueError):
+        fused_step_cuda.myula_prox_tv_blocked(g, g, g, g.transpose(1, 2), 1.0, 1.0, 0.1)
