@@ -43,6 +43,28 @@ Phases:
         injected noise: θ_EB, σ²_EB and mse_db agree to 1e-3 relative.
      d. SAPG chain-iter/s at 1024² B=4 and 2048² B=1, 2 (blocked, kernel
         B, plain); SALSA at 2048², 100 outer iterations (tol 0).
+  6. the dense-DFT steps and the in-kernel noise (csrc/dft_kernels.cu,
+     csrc/rng.cuh):
+     a. kernel C at 512² (B=1, 16) and 481×353 (B=3), I's seeds form at
+        2048² (B=1, 2) and 1000×1528 (B=3), against their plain versions
+        with the same seeds (bound as phase 2), timed beside B and I fed the
+        same noise as a field; C's raw noise field (x = prox = grad = 0,
+        γ = 0.5) within the moment bands of tests/test_tpu_only.py.  Kernels
+        D and E at 256² (B=1, 2), 512² (B=1, 16) and 480×353 (B=3, one chain
+        stopping inside the run) at tol=0: within 1e-5 of the float32 plain
+        version and at most 2× its deviation from a float64 plain version;
+        at tol=1e-3 sweep counts within one.  Times of D, E, their plain
+        versions and route B with cuFFT and with the matmul DFT transforms.
+     b. `run_demo` (2000/1500 samples): 512² published Gaussian in dft mode
+        with fuse_dft (D) and with fuse_irdft (E; B runs the warm-up),
+        512² with in_kernel_rng (C), 256² B=2 in dft mode (the auto rule
+        picks D), 2048² synthetic Gaussian w free with σ²-log-scale and
+        in_kernel_rng (I's seeds form): counters rose, results in their
+        boxes, mse_db below y's.
+     c. the 512² kernel-D pipeline (60 SAPG + 60 SALSA) through the kernels
+        and through the plain versions on the card: agree to 1e-3.
+     d. SAPG chain-iter/s, w free: 512² B=1, 16 (fft+B, dft+B, D, E, C),
+        256² B=1, 2 (fft+B, D), 2048² B=1 (I, I with seeds).
 
 Prints the card line, a JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
@@ -61,6 +83,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REL_BOUND = 1e-5
 KERNELS_SRC = "semiblind_tv_tpu_torch/csrc/tv_kernels.cu"
 BLOCKED_SRC = "semiblind_tv_tpu_torch/csrc/tv_blocked.cu"
+DFT_SRC = "semiblind_tv_tpu_torch/csrc/dft_kernels.cu"
 # phase 5: the image sizes of the two rungs above 512² and the kernel shapes
 TILED, STREAMED = 1024, 2048
 KERNEL_SHAPES = [(1, TILED, TILED), (4, TILED, TILED), (1, STREAMED, STREAMED),
@@ -317,25 +340,35 @@ def phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag):
 
 
 def step_rate(torch, problem, B, route, n_steps=200, warm=20):
-    """SAPG chain-iter/s of the step through `route` (None: the default)."""
-    from semiblind_tv_tpu_torch.sapg.estimator import generator_noise, make_sapg_step
+    """SAPG chain-iter/s of the step through `route` (None: the default);
+    a step that draws its noise in the kernel gets (B, 2) seeds."""
+    from semiblind_tv_tpu_torch.sapg.estimator import (
+        generator_noise,
+        generator_seeds,
+        make_sapg_step,
+    )
 
     dev = problem.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    noise = generator_noise(gen, problem.blur.dtype, dev)
     step, aux = make_sapg_step(problem, B, route=route)
     shape = (B,) + problem.blur.shape
+    if aux["in_kernel_rng"](B):
+        seeds = generator_seeds(gen, dev)
+        draw = lambda: seeds(B)  # noqa: E731
+    else:
+        noise = generator_noise(gen, problem.blur.dtype, dev)
+        draw = lambda: noise(shape)  # noqa: E731
     X = problem.y.expand(shape).contiguous()
     prox = aux["prox_b"](X, aux["lam"] * aux["theta0"])[0]
     carry = (X, problem.blur.rfft(X), prox, aux["theta0"], problem.sigma2_init,
              dict(aux["params0"]))
     for ii in range(2, 2 + warm):
-        carry, _ = step(carry, ii, noise(shape))
+        carry, _ = step(carry, ii, draw())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for ii in range(2 + warm, 2 + warm + n_steps):
-        carry, _ = step(carry, ii, noise(shape))
+        carry, _ = step(carry, ii, draw())
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     check(bool(torch.isfinite(carry[0]).all()), "non-finite chain state in the rate run")
@@ -462,6 +495,276 @@ def phase5_rates(torch, dev, build_problem, gaussian_preset, salsa_tv, tag):
           f"{dt:.3f} s [{tag}]", flush=True)
 
 
+def reset_counters(*modules):
+    for m in modules:
+        for name in dir(m):
+            if name.endswith("LAUNCHES"):
+                setattr(m, name, 0)
+
+
+def phase6_noise_kernels(torch, dev, fs, big, tag):
+    """Kernel C and I's seeds form against their plain versions (the noise
+    drawn from the same seeds), with B and I fed that noise as a field for
+    the time comparison; the raw noise field's moments."""
+    from semiblind_tv_tpu_torch.ops.rng import philox_normals
+
+    g0 = torch.Generator(device=dev)
+    g0.manual_seed(6)
+    stats = {k: dict(max_abs_err=0.0, ms=None, plain_ms=None) for k in ("C", "I[seeds]")}
+    sc = (torch.tensor(1.9, device=dev), torch.tensor(2.0, device=dev),
+          torch.tensor(0.02, device=dev))
+    s2 = torch.tensor(2.5, device=dev)
+    cases = [("C", s) for s in ((1, 512, 512), (16, 512, 512), (3, 481, 353))] + \
+            [("I[seeds]", s) for s in ((1, STREAMED, STREAMED), (2, STREAMED, STREAMED),
+                                       (3, 1000, 1528))]
+    for row, (B, M, N) in cases:
+        noise = lambda s=1.0: torch.randn((B, M, N), generator=g0, device=dev) * s
+        x = (big[None, :M, :N] + noise(5.0)).abs().contiguous()
+        prox = (x + noise(0.1)).contiguous()
+        grad = noise(0.01).contiguous()
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), generator=g0, dtype=torch.int32,
+                              device=dev)
+        z = philox_normals(seeds, (M, N))
+        if row == "C":
+            kern = lambda tol=1e-3: fs.myula_prox_tv_rng(x, prox, grad, seeds, *sc, 25, tol=tol)
+            plain = lambda tol=1e-3: fs.myula_prox_tv_rng_plain(x, prox, grad, seeds, *sc, 25,
+                                                                tol=tol)
+            field = lambda: fs.myula_prox_tv(x, prox, grad, z, *sc, 25)
+            other = "B"
+        else:
+            kern = lambda tol=1e-3: fs.myula_prox_tv_blocked(x, prox, grad, None, *sc, s2,
+                                                             tol=tol, seeds=seeds)
+            plain = lambda tol=1e-3: fs.myula_prox_tv_blocked_plain(x, prox, grad, None, *sc, s2,
+                                                                    tol=tol, seeds=seeds)
+            field = lambda: fs.myula_prox_tv_blocked(x, prox, grad, z, *sc, s2)
+            other = "I"
+        k, p = kern(0.0), plain(0.0)
+        e = [rel(a, b) for a, b in zip(k, p)]
+        stats[row]["max_abs_err"] = max(stats[row]["max_abs_err"], max_abs(zip(k[:2], p[:2])))
+        torch.cuda.synchronize()
+        mk, mp, mf = cuda_ms(kern), cuda_ms(plain), cuda_ms(field)
+        print(f"phase6 {row} B={B} {M}x{N}: rel xn/proxn/tv "
+              f"{'/'.join(f'{v:.3e}' for v in e)} (bound {REL_BOUND:g}); kernel {mk * 1e3:.1f} us, "
+              f"plain {mp * 1e3:.1f} us, {other} fed the same noise as a field "
+              f"{mf * 1e3:.1f} us per call [{tag}]", flush=True)
+        check(max(e) <= REL_BOUND, f"{row} disagrees with its plain version: {e}")
+        if B == 1 and M in (512, STREAMED):
+            stats[row].update(ms=mk, plain_ms=mp)
+
+    # x = prox = grad = 0, γ = 0.5, positivity off: xn is the raw noise field
+    zero = torch.zeros((16, 512, 512), device=dev)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (16, 2), generator=g0, dtype=torch.int32,
+                          device=dev)
+    zf = fs.myula_prox_tv_rng(zero, zero, zero, seeds, 0.5, 1.0, 0.02, 1,
+                              positivity=False)[0].double()
+    n = zf.numel()
+    mom = [float(zf.mean()), float(zf.var()), float((zf ** 3).mean()), float((zf ** 4).mean())]
+    print(f"phase6 C raw noise 16x512x512: mean {mom[0]:.3e} var {mom[1]:.5f} third "
+          f"{mom[2]:.3e} fourth {mom[3]:.4f} (bands: |mean| < {5.0 / n ** 0.5:.2e}, |var−1| < "
+          f"0.05, |third| < 0.1, |fourth−3| < 0.3)", flush=True)
+    check(abs(mom[0]) < 5.0 / n ** 0.5 and abs(mom[1] - 1.0) < 0.05 and abs(mom[2]) < 0.1
+          and abs(mom[3] - 3.0) < 0.3, f"C's noise field fails its moment bands: {mom}")
+    return stats
+
+
+def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
+    """Kernels D and E against their plain versions in float32 and float64
+    on the card, and the D step against route B with cuFFT and with the
+    torch.matmul DFT transforms on the same inputs."""
+    from semiblind_tv_tpu_torch.ops.fourier import irfft2_matmul, rdft_matrices, rfft2_matmul
+
+    g0 = torch.Generator(device=dev)
+    g0.manual_seed(7)
+    stats = {k: dict(max_abs_err=0.0, ms=None, plain_ms=None) for k in ("D", "E")}
+    lam_theta = torch.tensor(0.02, device=dev)
+    sc = (torch.tensor(1.9, device=dev), torch.tensor(2.0, device=dev), lam_theta,
+          torch.tensor(2.5, device=dev))
+    sc64 = tuple(v.double() for v in sc)
+    iter_diffs = []
+    for B, M, N in ((1, 256, 256), (2, 256, 256), (1, 512, 512), (16, 512, 512), (3, 480, 353)):
+        mats = rdft_matrices((M, N), torch.float32, dev)
+        mats64 = rdft_matrices((M, N), torch.float64, dev)
+        noise = lambda s=1.0: torch.randn((B, M, N), generator=g0, device=dev) * s
+        x = (big[None, :M, :N] + noise(5.0)).abs()
+        prox, z = x + noise(0.1), noise()
+        ghat = torch.fft.rfft2(noise())
+        if B == 3:   # one chain that stops inside the run, one flat, one full
+            xn1 = fd.myula_prox_tv_irdft_plain(ghat[:1], x[:1], prox[:1], z[:1], mats, *sc,
+                                               tol=0.0)[0]
+            s_mid, t_mid = mid_pass_scale(torch, xn1[0], lam_theta, tv_cuda.chambolle_prox_plain)
+            print(f"phase6 {M}x{N}: chain 0 scaled by {s_mid:.4g} to stop after {t_mid} sweeps "
+                  "(plain)", flush=True)
+            scales = torch.tensor([s_mid, 1e-10, 1.0], device=dev)
+        elif B > 1:
+            scales = torch.logspace(0, -10, B, device=dev)
+        else:
+            scales = torch.ones(1, device=dev)
+        x, prox, z = ((t * scales[:, None, None]).contiguous() for t in (x, prox, z))
+        ghat = (ghat * scales[:, None, None]).contiguous()
+        ins = (ghat, x, prox, z)
+        ins64 = (ghat.to(torch.complex128), x.double(), prox.double(), z.double())
+        for row, fn, plain in (("D", fd.myula_prox_tv_dft, fd.myula_prox_tv_dft_plain),
+                               ("E", fd.myula_prox_tv_irdft, fd.myula_prox_tv_irdft_plain)):
+            k = fn(*ins, mats, *sc, tol=0.0)
+            p = plain(*ins, mats, *sc, tol=0.0)
+            p64 = plain(*ins64, mats64, *sc64, tol=0.0)
+            real = lambda t: torch.view_as_real(t) if t.is_complex() else t  # noqa: E731
+            errs, ratios = [], []
+            for i in [0, 1, 3][:len(k) - 1]:   # xn, proxn, x̂
+                a, b, c = real(k[i]), real(p[i]), real(p64[i])
+                errs.append(rel(a, b))
+                ratios.append(rel(a.double(), c) / max(rel(b.double(), c), 1e-30))
+                stats[row]["max_abs_err"] = max(stats[row]["max_abs_err"], max_abs([(a, b)]))
+            e_tv = rel(k[2], p[2])
+            ki = fn(*ins, mats, *sc, return_iters=True)[-1].tolist()
+            pi = plain(*ins, mats, *sc, return_iters=True)[-1].tolist()
+            torch.cuda.synchronize()
+            print(f"phase6 {row} B={B} {M}x{N} tol=0: rel to plain f32 "
+                  f"{'/'.join(f'{v:.3e}' for v in errs)} (xn/proxn{'/x̂' if row == 'D' else ''}), "
+                  f"tv {e_tv:.3e} (bound {REL_BOUND:g}); deviation from f64 over plain f32's "
+                  f"{'/'.join(f'{v:.3f}' for v in ratios)} (bound 2); tol=1e-3 sweeps kernel {ki} "
+                  f"plain {pi}", flush=True)
+            check(max(errs + [e_tv]) <= REL_BOUND, f"{row} disagrees with its plain version")
+            check(max(ratios) <= 2.0, f"{row} deviates from float64 more than 2x plain f32")
+            check(all(abs(a - b) <= 1 for a, b in zip(ki, pi)),
+                  f"{row} sweep counts differ by more than one: {ki} vs {pi}")
+            iter_diffs += [(row, B, M, N, c, a, b) for c, (a, b) in enumerate(zip(ki, pi)) if a != b]
+            check(any(1 < t < 25 for t in pi) or B != 3, "no chain stopped inside the run")
+
+        # times on the same inputs: D, E and their plain versions; route B with
+        # cuFFT (the default) and with the torch.matmul DFT transforms
+        s2 = sc[3]
+        calls = {
+            "D": lambda: fd.myula_prox_tv_dft(*ins, mats, *sc),
+            "D plain": lambda: fd.myula_prox_tv_dft_plain(*ins, mats, *sc),
+            "E": lambda: fd.myula_prox_tv_irdft(*ins, mats, *sc),
+            "E plain": lambda: fd.myula_prox_tv_irdft_plain(*ins, mats, *sc),
+            "E+rfft matmul": lambda: rfft2_matmul(fd.myula_prox_tv_irdft(*ins, mats, *sc)[0],
+                                                  mats),
+            "B+cuFFT": lambda: torch.fft.rfft2(fs.myula_prox_tv(
+                x, prox, torch.fft.irfft2(ghat, s=(M, N)) / s2, z, *sc[:3])[0]),
+            "B+matmul DFT": lambda: rfft2_matmul(fs.myula_prox_tv(
+                x, prox, irfft2_matmul(ghat, mats) / s2, z, *sc[:3])[0], mats),
+        }
+        ms = {name: cuda_ms(f) for name, f in calls.items()}
+        print(f"phase6 time B={B} {M}x{N}: " + ", ".join(f"{n} {v * 1e3:.1f} us"
+                                                         for n, v in ms.items()) + f" [{tag}]",
+              flush=True)
+        if (B, M, N) == (1, 256, 256):
+            stats["D"].update(ms=ms["D"], plain_ms=ms["D plain"])
+        if (B, M, N) == (1, 512, 512):
+            stats["E"].update(ms=ms["E"], plain_ms=ms["E plain"])
+    print(f"phase6 D/E chains whose tol=1e-3 sweep count differs from the plain version's "
+          f"(row, B, M, N, chain, kernel, plain): {iter_diffs}", flush=True)
+    return stats
+
+
+def phase6_demos(torch, fs, fd, tv_cuda, tb, run_demo, gaussian_preset, wheel_np, tag):
+    """run_demo through kernels D, E, C and I's seeds form; launches per row."""
+    from semiblind_tv_tpu_torch.utils.images import load_image
+
+    free = gaussian_preset(fix_w1=False, fix_w2=False)
+    runs = [
+        ("512x512 dft, fuse_dft (D)", gaussian_preset(), wheel_np, 1,
+         dict(fft_mode="dft", fuse_dft=True), "D"),
+        ("512x512 dft, fuse_irdft (E)", gaussian_preset(), wheel_np, 1,
+         dict(fft_mode="dft", fuse_irdft=True), "E"),
+        ("512x512 in_kernel_rng (C)", gaussian_preset(), wheel_np, 1,
+         dict(in_kernel_rng=True), "C"),
+        ("256x256 B=2 dft, fuse_dft auto (D)", gaussian_preset(), wheel_np[128:384, 128:384], 2,
+         dict(fft_mode="dft"), "D"),
+        ("2048x2048 w free, sigma-log-scale, in_kernel_rng (I[seeds])", free,
+         load_image("synthetic", size=STREAMED), 1,
+         dict(sigma_log_scale=True, in_kernel_rng=True), "I[seeds]"),
+    ]
+    launches = {"C": 0, "D": 0, "E": 0, "I[seeds]": 0}
+    for name, cfg, image, n_chains, extra, row in runs:
+        cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **DEMO_BUDGET, **extra))
+        reset_counters(fs, fd, tv_cuda, tb)
+        t0 = time.perf_counter()
+        results, sapg, salsa, problem = run_demo(cfg, image, n_chains=n_chains, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = {"D": fd.DFT_LAUNCHES, "E": fd.IRDFT_LAUNCHES, "C": fs.RNG_LAUNCHES,
+                  "B": fs.LAUNCHES, "blocked step": fs.BLOCKED_LAUNCHES,
+                  "I[seeds]": fs.BLOCKED_SEEDS_LAUNCHES}
+        print(f"phase6 demo {name}: " + json.dumps(results), flush=True)
+        print(f"phase6 demo {name}: launches {json.dumps(counts)}; theta_EB "
+              f"{results['theta_EB']:.6f}, sigma2_EB {results['sigma2_EB']:.4f} vs truth "
+              f"{results['sigma2_true']:.4f}; mse_db {results['mse_db']:.3f} vs y "
+              f"{results['mse_db_observation']:.3f}; SAPG {results['sapg_time_s']:.3f} s, SALSA "
+              f"{results['salsa_time_s']:.3f} s, wall {wall:.3f} s [{tag}]", flush=True)
+        check(counts[row] > 0, f"{name}: kernel {row} was not launched")
+        if row == "E":   # the warm-up keeps kernel B, as the JAX warm step does
+            check(counts["B"] > 0, f"{name}: the warm-up did not run kernel B")
+        if row == "I[seeds]":
+            check(counts["I[seeds]"] == counts["blocked step"], f"{name}: a step read a z field")
+        else:
+            check(counts["blocked step"] == 0, f"{name}: the blocked step ran at ≤512²")
+        if row in ("C", "D"):
+            check(counts["B"] == 0, f"{name}: kernel B ran instead of {row}")
+        check_demo(results, sapg, salsa, problem, cfg, image.shape, name)
+        launches[row] += counts[row]
+    return launches
+
+
+def phase6_card_vs_plain(torch, dev, fd, run_demo, gaussian_preset, wheel_np, tag):
+    """The 512² kernel-D pipeline through the kernels and through the plain
+    versions on the card, with the same injected noise."""
+    cfg = gaussian_preset(fix_w1=False, fix_w2=False)
+    cfg = dataclasses.replace(
+        cfg, sapg=dataclasses.replace(cfg.sapg, samples=60, warmup=30, burn_in=48,
+                                      fft_mode="dft", fuse_dft=True),
+        salsa=dataclasses.replace(cfg.salsa, outer_iters=60))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    obs = torch.randn((512, 512), generator=gen, device=dev)
+    draws = [torch.randn((1, 512, 512), generator=gen, device=dev) for _ in range(29 + 59)]
+
+    def injected():
+        it = iter(draws)
+        return lambda shape: next(it)
+
+    fd.DFT_LAUNCHES = 0
+    r_k, *_ = run_demo(cfg, wheel_np, device="cuda", obs_noise=obs, noise=injected())
+    check(fd.DFT_LAUNCHES == 29 + 59, f"the D pipeline launched D {fd.DFT_LAUNCHES} times")
+    r_p, *_ = run_demo(cfg, wheel_np, device="cuda", obs_noise=obs, noise=injected(), plain=True)
+    agree = {k: abs(r_k[k] - r_p[k]) / abs(r_p[k]) for k in ("theta_EB", "sigma2_EB", "mse_db")}
+    print(f"phase6 512x512 kernel D vs plain on the card, 60 SAPG + 60 SALSA: relative "
+          f"differences {json.dumps(agree)} (bound 1e-3); SAPG s kernel "
+          f"{r_k['sapg_time_s']:.3f} plain {r_p['sapg_time_s']:.3f} [{tag}]", flush=True)
+    for k, v in agree.items():
+        check(v <= 1e-3, f"kernel D and plain disagree at 512² on {k}: {v}")
+
+
+def phase6_rates(torch, dev, build_problem, gaussian_preset, wheel_np, tag):
+    """SAPG chain-iter/s of the step variants on the same problem data."""
+    from semiblind_tv_tpu_torch.utils.images import load_image
+
+    free = gaussian_preset(fix_w1=False, fix_w2=False)
+    variants = {
+        "fft+B": {}, "dft+B": dict(fft_mode="dft", fuse_dft=False),
+        "D": dict(fft_mode="dft", fuse_dft=True),
+        "E": dict(fft_mode="dft", fuse_dft=False, fuse_irdft=True),
+        "C": dict(in_kernel_rng=True), "I": {}, "I[seeds]": dict(in_kernel_rng=True),
+    }
+    cells = [(512, wheel_np, (1, 16), ("fft+B", "dft+B", "D", "E", "C")),
+             (256, wheel_np[128:384, 128:384], (1, 2), ("fft+B", "D")),
+             (STREAMED, load_image("synthetic", size=STREAMED), (1,), ("I", "I[seeds]"))]
+    for size, image, chains, names in cells:
+        probs = {}
+        for n in names:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(1)
+            cfg = dataclasses.replace(free, sapg=dataclasses.replace(free.sapg, **variants[n]))
+            probs[n] = build_problem(image, cfg, gen, device=dev)
+        steps = (200, 20) if size <= 512 else (60, 5)
+        for B in chains:
+            rates = {n: step_rate(torch, probs[n], B, None, *steps) for n in names}
+            print(f"phase6 SAPG step {size}x{size} B={B} (w free): " +
+                  ", ".join(f"{n} {r:.1f}" for n, r in rates.items()) +
+                  f" chain-iter/s [{tag}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -473,6 +776,7 @@ def main() -> int:
 
     from semiblind_tv_tpu_torch import _build
     from semiblind_tv_tpu_torch.cli.run_demo import run_demo
+    from semiblind_tv_tpu_torch.ops import fused_dft_cuda as fd
     from semiblind_tv_tpu_torch.ops import fused_step_cuda, tv_cuda
     from semiblind_tv_tpu_torch.ops import tv_blocked_cuda as tb
     from semiblind_tv_tpu_torch.runtime.config import (
@@ -599,6 +903,21 @@ def main() -> int:
               f"at B=1 [{tag}]", flush=True)
     print(f"phase5 took {time.perf_counter() - t5:.1f} s", flush=True)
 
+    # ---- phase 6 ------------------------------------------------------------
+    t6 = time.perf_counter()
+    # the plain DFT transforms and D's float64 reference run on torch.matmul
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest", "TF32 is on for matmuls")
+    big = wheel.repeat(STREAMED // wheel.shape[0], STREAMED // wheel.shape[1])
+    noise_stats = phase6_noise_kernels(torch, dev, fused_step_cuda, big, tag)
+    dft_stats = phase6_dft_kernels(torch, dev, fused_step_cuda, fd, tv_cuda, big, tag)
+    new_launches = phase6_demos(torch, fused_step_cuda, fd, tv_cuda, tb, run_demo,
+                                gaussian_preset, wheel_np, tag)
+    phase6_card_vs_plain(torch, dev, fd, run_demo, gaussian_preset, wheel_np, tag)
+    phase6_rates(torch, dev, build_problem, gaussian_preset, wheel_np, tag)
+    new_stats = dict(noise_stats, **dft_stats)
+    print(f"phase6 took {time.perf_counter() - t6:.1f} s", flush=True)
+
     src = KERNELS_SRC
     rows = [
         ("chambolle_prox_cuda[warm]", src, "semiblind_tv_tpu/ops/tv_pallas.py:262", "A1",
@@ -615,6 +934,14 @@ def main() -> int:
          "semiblind_tv_tpu/ops/tv_pallas.py:1180", "H", big_stats, big_launches),
         ("myula_prox_tv_blocked[2048²]", BLOCKED_SRC,
          "semiblind_tv_tpu/ops/fused_step_pallas.py:528", "I", big_stats, big_launches),
+        ("myula_prox_tv_blocked[seeds, 2048²]", BLOCKED_SRC,
+         "semiblind_tv_tpu/ops/tv_pallas.py:1180", "I[seeds]", new_stats, new_launches),
+        ("myula_prox_tv_rng", src, "semiblind_tv_tpu/ops/fused_step_pallas.py:166", "C",
+         new_stats, new_launches),
+        ("myula_prox_tv_dft", DFT_SRC, "semiblind_tv_tpu/ops/fused_step_pallas.py:304", "D",
+         new_stats, new_launches),
+        ("myula_prox_tv_irdft", DFT_SRC, "semiblind_tv_tpu/ops/fused_step_pallas.py:496", "E",
+         new_stats, new_launches),
     ]
     kernels = []
     for n, s, r, k, st, ln in rows:

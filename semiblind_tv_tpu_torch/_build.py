@@ -51,8 +51,8 @@ _SIGNATURES = {
         [_P] * 13 + [_I] * 4 + [_F, _F, _P],
         _I,
     ),
-    "sb_myula_prox_tv": (
-        [_P] * 16 + [_I] * 4 + [_F, _F, _I, _P],
+    "sb_myula_step": (
+        [_P] * 18 + [_I] * 4 + [_F, _F, _I, _P],
         _I,
     ),
     "sb_chambolle_prox_blocked": (
@@ -60,7 +60,15 @@ _SIGNATURES = {
         _I,
     ),
     "sb_myula_prox_tv_blocked": (
-        [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
+        [_P] * 17 + [_I] * 7 + [_F, _F, _I, _P],
+        _I,
+    ),
+    "sb_myula_prox_tv_dft": (
+        [_P] * 27 + [_I] * 4 + [_F, _F, _I, _P],
+        _I,
+    ),
+    "sb_myula_prox_tv_irdft": (
+        [_P] * 23 + [_I] * 4 + [_F, _F, _I, _P],
         _I,
     ),
 }

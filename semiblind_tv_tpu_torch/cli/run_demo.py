@@ -15,6 +15,10 @@ Usage:
 
 Above 512² the SAPG step and both proxes run the temporally-blocked
 kernels (ops/tv_blocked_cuda.py, ops/fused_step_cuda.myula_prox_tv_blocked).
+`--fft-mode dft` runs the transforms as dense DFT matmuls (and, at ≤256²
+with ≤2 chains, the step as kernel D); `--in-kernel-rng` draws the Langevin
+noise inside the step kernel (kernel C up to 512², the blocked kernel's
+seeds form at ≥2048²).
 
 `--device` defaults to `cuda`; a CUDA request on a machine without a card
 raises.  Flags of the JAX CLI that are not ported yet are absent.
@@ -160,6 +164,13 @@ def main(argv=None):
     p.add_argument("--psf-log-scale", action="store_true",
                    help="log-space SA updates of the free PSF parameters (an extension, "
                         "off = the reference's linear dynamics)")
+    p.add_argument("--fft-mode", choices=["fft", "dft"], default=None,
+                   help="hot-loop transforms: torch.fft (cuFFT, the default) or dense "
+                        "DFT matmuls")
+    p.add_argument("--in-kernel-rng", action="store_true",
+                   help="draw the Langevin noise inside the step kernel from per-chain "
+                        "seeds (an extension: a different, equally valid noise "
+                        "realisation; off on the CPU and at 1024²)")
     args = p.parse_args(argv)
 
     kwargs = {}
@@ -173,6 +184,10 @@ def main(argv=None):
         sapg_over["burn_in"] = (args.samples * 80) // 100
     if args.warmup is not None:
         sapg_over["warmup"] = args.warmup
+    if args.fft_mode is not None:
+        sapg_over["fft_mode"] = args.fft_mode
+    if args.in_kernel_rng:
+        sapg_over["in_kernel_rng"] = True
     if args.sigma_log_scale:
         sapg_over["sigma_log_scale"] = True
     if args.psf_log_scale:

@@ -4,6 +4,8 @@
 //   semiblind_tv_tpu/ops/tv_pallas.py::chambolle_prox_pallas
 //       (_kernel: warm duals in and out; _kernel_fresh: zero duals, f only)
 //   semiblind_tv_tpu/ops/fused_step_pallas.py::myula_prox_tv (_kernel)
+//   semiblind_tv_tpu/ops/fused_step_pallas.py::myula_prox_tv_rng (_kernel_rng:
+//       the same step with the noise drawn in the kernel)
 // which keep the whole image and both dual fields resident in VMEM for all
 // sweeps.  A 512x512 f32 field is 1 MB, far above the 227 KB of shared
 // memory of one SM, so that design does not carry over.  This first port
@@ -29,6 +31,15 @@
 //
 // Built with --fmad=false so that the elementwise arithmetic rounds like
 // PyTorch's separate operations; '/' and sqrtf are IEEE (no fast math).
+//
+// Entry points: sb_chambolle_prox (A1/A2) and sb_myula_step, the fused
+// step: kernel B with a z field, kernel C with z null and per-chain seeds
+// (the prologue evaluates the Philox normals of rng.cuh at each pixel, and
+// at the tile's up and left halo that it recomputes for the TV, instead of
+// reading a z field: one field read and the torch.randn launch less per
+// chain-iteration for 1.16 Philox evaluations a pixel, ten rounds of two
+// 32x32-bit multiplies each), and with σ² the middle of the DFT steps of
+// dft_kernels.cu.
 //
 // The C interface takes raw pointers and a cudaStream_t and returns the
 // first CUDA error (cudaSuccess == 0).  Outputs and scratch are allocated by
@@ -184,22 +195,20 @@ int sb_chambolle_prox(const float* g, const float* lam, const float* px_in,
                            f, px_out, py_out, B, M, N, max_iter, tau, tol, st);
 }
 
-// Kernel B: MYULA prologue (xn, tv) -> n_sweeps fresh sweeps on xn/(λθ) ->
-// proxn = xn − λθ·div p.
-int sb_myula_prox_tv(const float* x, const float* prox, const float* grad,
-                     const float* z, const float* gamma, const float* lam,
-                     const float* lam_theta, float* xn, float* proxn, float* tv,
-                     float* px_buf, float* py_buf, int* iters, float* err,
-                     int* active, float* partials, int B, int M, int N,
-                     int n_sweeps, float tau, float tol, int positivity,
-                     void* stream) {
+int sb_myula_step(const float* x, const float* prox, const float* grad, const float* z,
+                  const int* seeds, const float* gamma, const float* lam,
+                  const float* lam_theta, const float* sigma2, float* xn, float* proxn,
+                  float* tv, float* px_buf, float* py_buf, int* iters, float* err,
+                  int* active, float* partials, int B, int M, int N, int n_sweeps,
+                  float tau, float tol, int positivity, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((z == nullptr) == (seeds == nullptr)) return cudaErrorInvalidValue;
   const dim3 block(TX, TY);
   const dim3 grid((N + TX - 1) / TX, (M + TY - 1) / TY, B);
   const int nblk = (int)(grid.x * grid.y);
   const size_t bytes = (size_t)B * M * N * sizeof(float);
   cudaError_t e;
-  myula_prologue<<<grid, block, 0, st>>>(x, prox, grad, z, gamma, lam, nullptr, xn,
+  myula_prologue<<<grid, block, 0, st>>>(x, prox, grad, z, seeds, gamma, lam, sigma2, xn,
                                          partials, M, N, positivity);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   sum_reduce<<<B, RT, 0, st>>>(partials, nblk, tv);

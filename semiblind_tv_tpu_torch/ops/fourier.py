@@ -1,5 +1,5 @@
 """Fourier-domain circular blur operator on the rfft2 half-spectrum (port of
-`semiblind_tv_tpu/ops/fourier.py`, fft mode).
+`semiblind_tv_tpu/ops/fourier.py`).
 
 The reference embeds the s x s PSF into the top-left corner of an
 image-sized array (`utils/resize.m`, no circular centering — the blur
@@ -13,8 +13,12 @@ blur as an FFT-diagonal multiply.  As in the JAX package:
     `Precision.HIGHEST`);
   * inner products use Parseval's theorem on the half-spectrum.
 
-The transforms are `torch.fft` (cuFFT on the card).  The JAX package's TPU
-workarounds — the dense-DFT transform mode, bf16 "high" precision and the
+Two transform modes, as in the JAX package: 'fft' (`torch.fft`, cuFFT on
+the card; the default) and 'dft', dense real DFT matmuls with the factor
+matrices of `rdft_matrices` (`rfft2_matmul`, `irfft2_matmul`, on
+`torch.matmul` in full precision).  The dft mode's matrices also feed the
+whole-iteration step kernels D and E (ops/fused_dft_cuda.py).  The JAX
+package's TPU workarounds — bf16 "high" transform precision and the
 batched-FFT chunking — are not ported.
 """
 from __future__ import annotations
@@ -28,6 +32,9 @@ __all__ = [
     "rfft_weights",
     "parseval_dot",
     "parseval_norm_sq",
+    "rdft_matrices",
+    "rfft2_matmul",
+    "irfft2_matmul",
     "BlurOperator",
 ]
 
@@ -87,13 +94,78 @@ def parseval_norm_sq(ahat, weights, dim):
     return torch.sum(weights * (re * re + im * im)) / dim
 
 
+def rdft_matrices(shape, dtype=torch.float32, device=None):
+    """Real cos/sin factor matrices of the matmul rfft2/irfft2, built in
+    float64 with numpy exactly as the JAX package builds them, then cast
+    (so the two packages' matrices are bit-equal).  For shape (M, N),
+    Nh = N//2+1:
+
+      CN, SN   (N, Nh)  cos/sin(2π nk/N)          forward rows
+      CM, SM   (M, M)   cos/sin(2π mk/M)          forward and inverse columns
+      WCT, WST (Nh, N)  w_k cos/sin(2π nk/N)/N    inverse rows, with the rfft
+                                                  column weights w_k folded in
+    """
+    M, N = shape
+    Nh = N // 2 + 1
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    n = np.arange(N)[:, None]
+    k = np.arange(Nh)[None, :]
+    ang_n = (2.0 * np.pi / N) * (n * k)
+    m = np.arange(M)[:, None]
+    km = np.arange(M)[None, :]
+    ang_m = (2.0 * np.pi / M) * (m * km)
+    w = 2.0 * np.ones((Nh, 1))
+    w[0, 0] = 1.0
+    if N % 2 == 0:
+        w[-1, 0] = 1.0
+    mats = dict(
+        CN=np.cos(ang_n),
+        SN=np.sin(ang_n),
+        CM=np.cos(ang_m),
+        SM=np.sin(ang_m),
+        WCT=w * np.cos(ang_n).T / N,
+        WST=w * np.sin(ang_n).T / N,
+    )
+    # row-major copies: the kernels of ops/fused_dft_cuda.py take contiguous
+    # matrices, and w·cos(·).T is laid out column-major by numpy
+    return {name: torch.from_numpy(np.ascontiguousarray(a, dtype=np_dtype)).to(device)
+            for name, a in mats.items()}
+
+
+def rfft2_matmul(x: torch.Tensor, mats) -> torch.Tensor:
+    """rfft2 of real x (..., M, N) by six real matmuls: rows with
+    exp(−2πi nk/N) = CN − i·SN, then columns with the symmetric (M, M)
+    factor."""
+    CN, SN, CM, SM = mats["CN"], mats["SN"], mats["CM"], mats["SM"]
+    yre = torch.matmul(x, CN)
+    yim = -torch.matmul(x, SN)
+    zre = torch.matmul(CM, yre) + torch.matmul(SM, yim)
+    zim = torch.matmul(CM, yim) - torch.matmul(SM, yre)
+    return torch.complex(zre, zim)
+
+
+def irfft2_matmul(zhat: torch.Tensor, mats) -> torch.Tensor:
+    """irfft2 of a half-spectrum (..., M, N//2+1) by six real matmuls:
+    inverse columns with exp(+2πi mk/M) = CM + i·SM and 1/M, then the
+    Hermitian-expanded inverse rows, whose weights WCT/WST carry the
+    conjugate columns (the JAX package's irfft2_matmul docstring)."""
+    CM, SM, WCT, WST = mats["CM"], mats["SM"], mats["WCT"], mats["WST"]
+    M = CM.shape[0]
+    zre, zim = zhat.real, zhat.imag
+    yre = (torch.matmul(CM, zre) - torch.matmul(SM, zim)) / M
+    yim = (torch.matmul(CM, zim) + torch.matmul(SM, zre)) / M
+    return torch.matmul(yre, WCT) - torch.matmul(yim, WST)
+
+
 class BlurOperator:
     """Circular convolution A (and Aᵀ) as an rfft-diagonal multiply.
 
-    Holds the cached DFT factor matrices and Parseval weights on `device`;
-    the OTF is passed in (it changes every SAPG step)."""
+    Holds the cached DFT factor matrices and Parseval weights on `device`,
+    and in fft_mode='dft' the rdft_matrices (`rdft`) that its transforms
+    use; the OTF is passed in (it changes every SAPG step)."""
 
-    def __init__(self, shape, psf_size: int, dtype=torch.float32, device=None):
+    def __init__(self, shape, psf_size: int, dtype=torch.float32, device=None,
+                 fft_mode: str = "fft"):
         self.shape = tuple(int(s) for s in shape)
         self.psf_size = int(psf_size)
         self.dtype = dtype
@@ -102,6 +174,10 @@ class BlurOperator:
         self.factors = dft_factors(psf_size, self.shape, self.cdtype, self.device)
         self.weights = rfft_weights(self.shape, dtype, self.device)
         self.dim = self.shape[0] * self.shape[1]
+        if fft_mode not in ("fft", "dft"):
+            raise ValueError(f"fft_mode must be 'fft' or 'dft', got {fft_mode!r}")
+        self.fft_mode = fft_mode
+        self.rdft = rdft_matrices(self.shape, dtype, self.device) if fft_mode == "dft" else None
 
     def otf(self, kernel: torch.Tensor) -> torch.Tensor:
         return otf_rfft(kernel, self.shape, self.factors)
@@ -129,9 +205,13 @@ class BlurOperator:
         return torch.from_numpy(np.fft.rfft2(xn)).to(device=self.device, dtype=self.cdtype)
 
     def rfft(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fft_mode == "dft":
+            return rfft2_matmul(x, self.rdft)
         return torch.fft.rfft2(x)
 
     def irfft(self, xhat: torch.Tensor) -> torch.Tensor:
+        if self.fft_mode == "dft":
+            return irfft2_matmul(xhat, self.rdft).to(self.dtype)
         return torch.fft.irfft2(xhat, s=self.shape).to(self.dtype)
 
     def apply(self, x: torch.Tensor, H: torch.Tensor) -> torch.Tensor:

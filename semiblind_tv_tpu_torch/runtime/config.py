@@ -6,7 +6,9 @@ same defaults, same presets and the same deliberate reference quirks (the
 Laplace demo's 10x gamma and lambdaMax=0.1, its `max` Lipschitz
 aggregation).  Options of the JAX package that only select TPU code paths
 keep their fields so configurations compare equal; the port's estimator
-raises `NotImplementedError` for the ones it does not run yet.
+raises `NotImplementedError` for the two it does not run
+(`fft_precision='high'`, a TPU bf16 workaround, and
+`track_posterior_moments`).
 """
 from __future__ import annotations
 
@@ -49,16 +51,24 @@ class SAPGConfig:
     use_pallas_prox: bool = False   # JAX name kept: the SAPG prox takes the
                                     # Chambolle kernel (always the case on a
                                     # CUDA tensor in the port)
-    fft_mode: Optional[str] = None  # port: only 'fft' (cuFFT); 'dft' raises
+    fft_mode: Optional[str] = None  # 'fft' (torch.fft, cuFFT) or 'dft' (dense
+                                    # DFT matmuls, ops/fourier.py); None:
+                                    # 'fft' on every device
     use_fused_step: Optional[bool] = None
                                     # None/True: MYULA + prox + TV through
                                     # ops/fused_step_cuda.myula_prox_tv;
                                     # False: MYULA step, then the prox kernel
                                     # (ops/tv_cuda) and tv_norm separately
     fft_precision: Optional[str] = None  # port: full fp32 always; 'high' raises
-    fuse_dft: Optional[bool] = None  # not ported (raises when True)
-    fuse_irdft: bool = False        # not ported (raises when True)
-    in_kernel_rng: bool = False     # not ported (raises when True)
+    fuse_dft: Optional[bool] = None  # dft mode, route B: the whole-iteration
+                                    # kernel D (ops/fused_dft_cuda); None: on
+                                    # at ≤256² with ≤2 chains
+    fuse_irdft: bool = False        # dft mode, route B, no fuse_dft and no
+                                    # in_kernel_rng: kernel E (D without the
+                                    # forward transform); the warm-up keeps B
+    in_kernel_rng: bool = False     # noise drawn in the step kernel from
+                                    # per-chain seeds: kernel C on route B, I's
+                                    # seeds form on route I; off elsewhere
     track_traces: bool = True       # record per-iteration diagnostics
     theta_log_scale: bool = False   # Algorithm-1 log-θ updates
     positivity: bool = True         # abs() projection in the MYULA step

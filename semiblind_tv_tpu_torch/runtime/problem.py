@@ -32,7 +32,7 @@ from semiblind_tv_tpu_torch.runtime.config import DemoConfig
 
 __all__ = [
     "Problem", "build_problem", "synthesize_observation", "make_psf_model",
-    "problem_from_arrays",
+    "problem_from_arrays", "resolve_fft_mode",
 ]
 
 
@@ -46,6 +46,17 @@ def make_psf_model(cfg: DemoConfig, dtype=torch.float32) -> PsfModel:
     if cfg.psf == "isotropic_gaussian":
         raise NotImplementedError("the isotropic Gaussian family is not ported yet")
     raise ValueError(f"unknown psf family: {cfg.psf!r}")
+
+
+def resolve_fft_mode(fft_mode: Optional[str]) -> str:
+    """The transform mode: 'fft' for None on every device (the JAX
+    package's TPU auto-policy, dft up to 512², is not ported); an explicit
+    'fft' or 'dft' is honoured."""
+    if fft_mode is None:
+        return "fft"
+    if fft_mode not in ("fft", "dft"):
+        raise ValueError(f"fft_mode must be 'fft' or 'dft', got {fft_mode!r}")
+    return fft_mode
 
 
 def _sigma_for_bsnr(Ax, d, bsnr):
@@ -133,15 +144,20 @@ def build_problem(
     dtype=torch.float32,
     device="cpu",
     noise=None,
+    fft_mode: Optional[str] = None,
 ) -> Problem:
     """Assemble a Problem from a ground-truth image and a DemoConfig.
 
     The observation noise is drawn from `generator` (which must live on
-    `device`), or given as `noise`, a standard-normal field of x's shape."""
+    `device`), or given as `noise`, a standard-normal field of x's shape.
+    fft_mode (default cfg.sapg.fft_mode, through resolve_fft_mode) selects
+    the blur operator's transforms, the observation's included, as in the
+    JAX package."""
     device = torch.device(device)
     x = torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
     model = make_psf_model(cfg, dtype)
-    blur = BlurOperator(x.shape, cfg.psf_size, dtype, device)
+    mode = resolve_fft_mode(cfg.sapg.fft_mode if fft_mode is None else fft_mode)
+    blur = BlurOperator(x.shape, cfg.psf_size, dtype, device, fft_mode=mode)
     d = x.numel()
 
     true_params = {
@@ -176,11 +192,13 @@ def build_problem(
 
 
 def problem_from_arrays(cfg: DemoConfig, arrays: Dict[str, np.ndarray], device="cpu",
-                        dtype=torch.float32) -> Problem:
+                        dtype=torch.float32, fft_mode: Optional[str] = None) -> Problem:
     """The port's Problem from the fields of the JAX package's Problem, given
     as numpy arrays (x_true, y, yhat, H_true, kernel_true, sigma_true,
     sigma2_init, sigma2_box, ev_max, Lf, lambda_myula, gamma; gamma_max is
-    derived when absent), so the two packages compute on the same problem."""
+    derived when absent), so the two packages compute on the same problem.
+    fft_mode is the JAX Problem's `blur.fft_mode` (default: resolved from
+    cfg.sapg.fft_mode); in 'dft' mode the rdft matrices are rebuilt."""
     device = torch.device(device)
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
 
@@ -199,7 +217,8 @@ def problem_from_arrays(cfg: DemoConfig, arrays: Dict[str, np.ndarray], device="
     return Problem(
         cfg=cfg,
         model=make_psf_model(cfg, dtype),
-        blur=BlurOperator(x.shape, cfg.psf_size, dtype, device),
+        blur=BlurOperator(x.shape, cfg.psf_size, dtype, device, fft_mode=resolve_fft_mode(
+            cfg.sapg.fft_mode if fft_mode is None else fft_mode)),
         x_true=x,
         y=real("y"),
         yhat=cplx("yhat"),

@@ -23,9 +23,20 @@ kernel G up to 1024² and of its streamed kernel I beyond (gradF's /σ² in
 the kernel).  `resolve_prox_route` picks the initial (and unfused) prox
 the same way.  On the CPU both take the plain versions.
 
+In fft_mode='dft' (BlurOperator's dense-DFT transforms) the step follows
+the JAX package's branch order on route B: `resolve_fuse_dft` selects the
+whole-iteration kernel D (ops/fused_dft_cuda.myula_prox_tv_dft: the
+inverse transform, the spatial segment and the forward transform), and
+`fuse_irdft` kernel E (D without the forward transform; the warm-up keeps
+kernel B, as in JAX).  `resolve_in_kernel_rng` selects the in-kernel-noise
+forms: kernel C (myula_prox_tv_rng) on route B and the blocked kernel's
+seeds form on route I; the step then takes (B, 2) int32 seeds instead of a
+noise field.
+
 Options ported from the JAX package: sigma_log_scale, psf_log_scale and
 theta_log_scale (Algorithm-1: SA updates in log space, clipped there; the
-θ EB estimate is then the geometric mean of the window).
+θ EB estimate is then the geometric mean of the window), fft_mode,
+fuse_dft, fuse_irdft and in_kernel_rng.
 
 Chains live on the leading dimension; the per-chain SA statistics are
 averaged before the hyperparameter update.  θ, σ² and the PSF parameters
@@ -35,7 +46,10 @@ once, after the loop: nothing inside the loop waits for the device.
 
 The noise source is injectable: `noise(shape) -> (B, M, N) tensor` is
 called once per warm-up and main step, in that order; the default draws
-standard normals from the estimator's torch.Generator.
+standard normals from the estimator's torch.Generator.  With in-kernel
+noise the seed source `seeds(B) -> (B, 2) int32 tensor` is called instead
+(default: `generator_seeds`, the counterpart of the JAX chain_seeds).  Its
+noise realisation differs from the default's, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -46,10 +60,12 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from semiblind_tv_tpu_torch.ops.fused_dft_cuda import myula_prox_tv_dft, myula_prox_tv_irdft
 from semiblind_tv_tpu_torch.ops.fused_step_cuda import (
     myula_prox_tv,
     myula_prox_tv_blocked,
     myula_prox_tv_plain,
+    myula_prox_tv_rng,
 )
 from semiblind_tv_tpu_torch.ops.tv import tv_norm
 from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_prox_blocked
@@ -67,8 +83,11 @@ __all__ = [
     "run_segmented_scan",
     "assemble_result",
     "generator_noise",
+    "generator_seeds",
     "resolve_step_route",
     "resolve_prox_route",
+    "resolve_fuse_dft",
+    "resolve_in_kernel_rng",
 ]
 
 
@@ -138,7 +157,17 @@ def generator_noise(generator: torch.Generator, dtype, device) -> Callable:
     return draw
 
 
-_NOT_PORTED = ("track_posterior_moments", "in_kernel_rng", "fuse_dft", "fuse_irdft")
+def generator_seeds(generator: torch.Generator, device) -> Callable:
+    """The default seed source of the in-kernel noise: (B, 2) int32 seed
+    pairs drawn uniformly from `generator` on `device`, fresh every step
+    (the counterpart of the JAX chain_seeds; no host sync)."""
+    def draw(n_chains):
+        return torch.randint(-2 ** 31, 2 ** 31, (n_chains, 2), generator=generator,
+                             dtype=torch.int32, device=device)
+    return draw
+
+
+_NOT_PORTED = ("track_posterior_moments",)
 
 
 def resolve_step_route(shape, device) -> str:
@@ -164,13 +193,40 @@ def resolve_prox_route(shape, device) -> str:
     return {None: "A2", "tiled": "F", "streamed": "H"}[blocked_rung(shape)]
 
 
+def resolve_fuse_dft(sapg, route: str, fft_mode: str, shape, B: int) -> bool:
+    """Whether the step runs kernel D: the JAX rule (estimator.py
+    resolve_fuse_dft) with "a TPU backend" read as route 'B' — the fused
+    step is not switched off, the transforms are dense DFTs, and fuse_dft
+    is True, or None with ≤256² and ≤2 chains.  Launches nothing."""
+    if route != "B" or sapg.use_fused_step is False or fft_mode != "dft":
+        return False
+    fd = sapg.fuse_dft
+    if fd is None:
+        fd = max(shape) <= 256 and B <= 2
+    return bool(fd)
+
+
+def resolve_in_kernel_rng(sapg, route: str, fft_mode: str, shape, B: int) -> bool:
+    """Whether the step draws its noise in the kernel: in_kernel_rng is set,
+    the fused step runs on route 'B' (kernel C) or 'I' (the blocked kernel's
+    seeds form), and kernel D does not run (JAX resolve_in_kernel_rng).  Off
+    at 1024² (route 'G', as the JAX tiled kernel has no seeds) and on the
+    'plain' route, so on the CPU the trajectory is the default's."""
+    return bool(
+        sapg.in_kernel_rng
+        and route in ("B", "I")
+        and sapg.use_fused_step is not False
+        and not resolve_fuse_dft(sapg, route, fft_mode, shape, B)
+    )
+
+
 def _check_ported(cfg) -> None:
     sapg = cfg.sapg
     for name in _NOT_PORTED:
         if getattr(sapg, name):
             raise NotImplementedError(f"SAPGConfig.{name} is not ported yet")
-    if sapg.fft_mode not in (None, "fft"):
-        raise NotImplementedError("the port's transforms are torch.fft only (fft_mode='fft')")
+    if sapg.fft_mode not in (None, "fft", "dft"):
+        raise ValueError(f"fft_mode must be 'fft' or 'dft', got {sapg.fft_mode!r}")
     if sapg.fft_precision not in (None, "highest"):
         raise NotImplementedError("the port runs its transforms in full precision only")
 
@@ -184,7 +240,8 @@ def make_general_sapg_step(
 ):
     """Build the per-iteration SAPG step as a function of (carry, ii, consts,
     Z) with consts = dict(yhat, gam, lam, sigma2_lo, sigma2_hi, sigma2_init)
-    and Z the step's (B, M, N) standard-normal field.
+    and Z the step's (B, M, N) standard-normal field, or its (B, 2) int32
+    seeds where aux["in_kernel_rng"](B) holds.
 
     carry = (X, Xhat, prox, theta, sigma2, params); the step returns
     (carry, trace) with trace a dict of 0-d device tensors.  `route`
@@ -202,6 +259,16 @@ def make_general_sapg_step(
         raise ValueError(f"unknown step route {route!r}")
     prox_route = "plain" if route == "plain" else resolve_prox_route(blur.shape, device)
     fused = sapg.use_fused_step is not False
+
+    def fuse_dft(B):
+        return resolve_fuse_dft(sapg, route, blur.fft_mode, blur.shape, B)
+
+    def in_kernel_rng(B):
+        return resolve_in_kernel_rng(sapg, route, blur.fft_mode, blur.shape, B)
+
+    # kernel E: JAX's fuse_irdft branch (explicit opt-in, dft mode, fused
+    # route B); the step takes it only without in-kernel noise and D
+    fuse_irdft = bool(sapg.fuse_irdft) and route == "B" and fused and blur.fft_mode == "dft"
 
     theta_spec = cfg.theta
     psf_specs = cfg.psf_params
@@ -239,21 +306,46 @@ def make_general_sapg_step(
             tau=sapg.chambolle_tau, tol=sapg.chambolle_tol, return_state=False,
         )
 
-    def spatial_segment(X, prox, grad_raw, sigma2, Z, gam, lam, lam_theta, positivity):
-        """The MYULA update with gradF = grad_raw/σ², the prox and the TV."""
+    def spatial_segment(X, prox, grad_raw, sigma2, Z, gam, lam, lam_theta, positivity, ikr):
+        """The MYULA update with gradF = grad_raw/σ², the prox and the TV;
+        with ikr, Z holds the (B, 2) seeds of the in-kernel noise."""
         kw = dict(n_sweeps=sapg.chambolle_iters, tau=sapg.chambolle_tau,
                   tol=sapg.chambolle_tol, positivity=positivity)
         if fused and route == "I":
+            if ikr:
+                return myula_prox_tv_blocked(X, prox, grad_raw, None, gam, lam, lam_theta,
+                                             sigma2, seeds=Z, **kw)
             return myula_prox_tv_blocked(X, prox, grad_raw, Z, gam, lam, lam_theta, sigma2, **kw)
         gradF = grad_raw / sigma2
         if fused and route == "G":
             return myula_prox_tv_blocked(X, prox, gradF, Z, gam, lam, lam_theta, **kw)
+        if fused and ikr:
+            return myula_prox_tv_rng(X, prox, gradF, Z, gam, lam, lam_theta, **kw)
         if fused:
             spatial = myula_prox_tv if route == "B" else myula_prox_tv_plain
             return spatial(X, prox, gradF, Z, gam, lam, lam_theta, **kw)
         Xn = myula_kernel_step(X, prox, gradF, gam, lam, Z, positivity)
         proxn, _ = prox_b(Xn, lam_theta)
         return Xn, proxn, tv_b(Xn)
+
+    def advance(X, prox, ghat, sigma2, Z, gam, lam, lam_theta, positivity, irdft_ok):
+        """(Xn, proxn, tv, Xhatn) from Ĝ = conj(H)·R̂, in the JAX package's
+        branch order: kernel D, kernel E (not in the warm-up), then the
+        transforms around the spatial segment."""
+        B = X.shape[0]
+        ikr = in_kernel_rng(B)
+        kw = dict(n_sweeps=sapg.chambolle_iters, tau=sapg.chambolle_tau,
+                  tol=sapg.chambolle_tol, positivity=positivity)
+        if fuse_dft(B):
+            return myula_prox_tv_dft(ghat, X, prox, Z, blur.rdft, gam, lam, lam_theta, sigma2,
+                                     **kw)
+        if irdft_ok and fuse_irdft and not ikr:
+            Xn, proxn, tv = myula_prox_tv_irdft(ghat, X, prox, Z, blur.rdft, gam, lam,
+                                                lam_theta, sigma2, **kw)
+        else:
+            Xn, proxn, tv = spatial_segment(X, prox, blur.irfft(ghat), sigma2, Z, gam, lam,
+                                            lam_theta, positivity, ikr)
+        return Xn, proxn, tv, blur.rfft(Xn)
 
     def as_t(v):
         return torch.tensor(v, dtype=dtype, device=device)
@@ -274,11 +366,10 @@ def make_general_sapg_step(
         Rhat = H[None] * Xhat - yhat[None]
         # prox lag: the MYULA update uses the prox of the previous iterate,
         # and the new prox is taken at the current (pre-update) θ
-        Xn, proxn, tv = spatial_segment(
-            X, prox, blur.irfft(torch.conj(H)[None] * Rhat), sigma2, Z, gam, lam,
-            lam * theta, sapg.positivity,
+        Xn, proxn, tv, Xhatn = advance(
+            X, prox, torch.conj(H)[None] * Rhat, sigma2, Z, gam, lam, lam * theta,
+            sapg.positivity, True,
         )
-        Xhatn = blur.rfft(Xn)
         Rn = H[None] * Xhatn - yhat[None]
         res2 = pnorm2(Rn)
 
@@ -346,17 +437,17 @@ def make_general_sapg_step(
 
     # --- warm-up step: MYULA at the fixed initial hyperparameters ---------
     # (SAPG_algorithm_Guassian.m:67-93), positivity always on (the JAX
-    # warm step forces it)
+    # warm step forces it); like the JAX warm step it has no kernel-E
+    # branch: under fuse_irdft the warm-up runs kernel B
     def warm_step(carry, consts, Z):
         yhat, gam, lam = consts["yhat"], consts["gam"], consts["lam"]
         sigma0 = consts["sigma2_init"]
         X, Xhat, prox = carry
         Rhat = H0_c[None] * Xhat - yhat[None]
-        Xn, proxn, tv = spatial_segment(
-            X, prox, blur.irfft(torch.conj(H0_c)[None] * Rhat), sigma0, Z, gam, lam,
-            lam * theta0_c, True,
+        Xn, proxn, tv, Xhatn = advance(
+            X, prox, torch.conj(H0_c)[None] * Rhat, sigma0, Z, gam, lam, lam * theta0_c,
+            True, False,
         )
-        Xhatn = blur.rfft(Xn)
         res2 = pnorm2(H0_c[None] * Xhatn - yhat[None])
         logpi = torch.mean(-res2 / (2.0 * sigma0) - theta0_c * tv)
         return (Xn, Xhatn, proxn), logpi
@@ -372,6 +463,8 @@ def make_general_sapg_step(
         H0=H0_c,
         route=route,
         prox_route=prox_route,
+        fuse_dft=fuse_dft,
+        in_kernel_rng=in_kernel_rng,
     )
     return step, aux
 
@@ -507,12 +600,16 @@ def run_sapg(
     nan_guard: bool = True,
     mesh=None,
     route: Optional[str] = None,
+    seeds: Optional[Callable] = None,
 ) -> SAPGResult:
     """Run warm-up + SAPG on the problem's device and assemble the full
     diagnostics bundle.
 
     noise: the noise source (see the module docstring); by default standard
     normals from `generator` (a torch.Generator on the problem's device).
+    seeds: the seed source of the in-kernel noise, used instead of `noise`
+    where the step draws its noise in the kernel; by default
+    generator_seeds(generator).
     mesh: the JAX package's sharded path; not ported yet (raises).
     route: overrides the kernel route (make_general_sapg_step)."""
     if mesh is not None:
@@ -522,12 +619,21 @@ def run_sapg(
     blur = problem.blur
     dtype = blur.dtype
     device = problem.device
-    if noise is None:
-        if generator is None:
-            raise ValueError("run_sapg needs a generator or a noise source")
-        noise = generator_noise(generator, dtype, device)
-
     step, aux = make_sapg_step(problem, n_chains, route=route)
+    shape = (n_chains,) + tuple(blur.shape)
+    if aux["in_kernel_rng"](n_chains):
+        if seeds is None:
+            if generator is None:
+                raise ValueError("run_sapg needs a generator or a seed source")
+            seeds = generator_seeds(generator, device)
+        draw = lambda: seeds(n_chains)  # noqa: E731
+    else:
+        if noise is None:
+            if generator is None:
+                raise ValueError("run_sapg needs a generator or a noise source")
+            noise = generator_noise(generator, dtype, device)
+        draw = lambda: noise(shape)  # noqa: E731
+
     psf_names = aux["psf_names"]
     prox_b, tv_b, pnorm2 = aux["prox_b"], aux["tv_b"], aux["pnorm2"]
     warm_step, consts = aux["warm_step"], aux["consts"]
@@ -538,7 +644,6 @@ def run_sapg(
 
     if x0 is None:
         x0 = problem.y  # op.X0 defaults to y (SAPG_algorithm_Guassian.m:10-12)
-    shape = (n_chains,) + tuple(blur.shape)
     X = torch.as_tensor(x0, dtype=dtype, device=device).expand(shape).contiguous()
 
     n_warm = max(sapg.warmup - 1, 0)
@@ -549,7 +654,7 @@ def run_sapg(
     logpi_wu = torch.empty((n_warm,), dtype=dtype, device=device)
     carry = (X, Xhat, prox)
     for t in range(n_warm):
-        carry, logpi_wu[t] = warm_step(carry, consts, noise(shape))
+        carry, logpi_wu[t] = warm_step(carry, consts, draw())
     X, Xhat, prox = carry
     # logPiTraceX(1) = logPi at the warm-start sample with the init params
     res2_0 = pnorm2(H0[None] * Xhat - yhat[None])
@@ -561,7 +666,7 @@ def run_sapg(
         names = None
         buf = None
         for t, ii in enumerate(iis):
-            carry, tr = step(carry, ii, noise(shape))
+            carry, tr = step(carry, ii, draw())
             if buf is None:
                 names = list(tr)
                 buf = torch.empty((len(names), len(iis)), dtype=dtype, device=device)

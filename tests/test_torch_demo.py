@@ -5,7 +5,8 @@ injected into the port; and the port's CLI on the CPU.
 
 θ_EB, σ²_EB, the PSF parameters and mse_db agree to 1e-8 relative; SSIM,
 which both packages compute in float32 with L=1 on [0, 255] data, to 1e-3
-(see tests/test_torch_salsa_metrics.py::test_ssim_matches_jax).
+(see tests/test_torch_salsa_metrics.py::test_ssim_matches_jax).  The same
+comparison runs in the dense-DFT transform mode (fft_mode='dft').
 """
 import dataclasses
 import json
@@ -68,3 +69,26 @@ def test_cli_main_on_cpu_writes_results(tmp_path, capsys):
     assert saved["n_chains"] == 2 and saved["samples"] == 12
     assert np.isfinite(saved["theta_EB"]) and saved["device"] == "cpu"
     assert json.loads(capsys.readouterr().out) == saved == json.loads(json.dumps(res))
+
+
+def test_run_demo_dft_mode_matches_jax_run_demo():
+    def short(cfg):
+        return dataclasses.replace(
+            cfg, sapg=dataclasses.replace(cfg.sapg, samples=40, warmup=20, burn_in=32,
+                                          fft_mode="dft"),
+            salsa=dataclasses.replace(cfg.salsa, outer_iters=50))
+
+    jc = short(jcfg.gaussian_preset(fix_w1=False, fix_w2=False))
+    tc = short(tcfg.gaussian_preset(fix_w1=False, fix_w2=False))
+    img = synthetic_wheel(SIZE)
+    jr, js, jsal, _ = j_run_demo(jc, img, dtype=jnp.float64)
+    k_prob, k_sapg = jax.random.split(jax.random.key(jc.seed))
+    obs = np.asarray(jax.random.normal(k_prob, img.shape, jnp.float64))
+    draws = jax_chain_draws(k_sapg, 1, img.shape, (20 - 1) + (40 - 1))
+    tr, ts, tsal, tp = t_cli.run_demo(tc, img, dtype=torch.float64, device="cpu",
+                                      obs_noise=obs, noise=replay(draws))
+    assert tp.blur.fft_mode == "dft"
+    for k in ("theta_EB", "sigma2_EB", "mse_db", "psnr_db", "snr_db", "mse_db_observation"):
+        np.testing.assert_allclose(tr[k], jr[k], rtol=1e-8, err_msg=k)
+    np.testing.assert_allclose(ts.sigma2s, js.sigma2s, rtol=1e-8)
+    np.testing.assert_allclose(tsal.x, np.asarray(jsal.x), rtol=1e-8, atol=1e-8)

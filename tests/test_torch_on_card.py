@@ -16,12 +16,22 @@ and as its schedule's emulation on the CPU
 (ops/tv_blocked_cuda.chambolle_prox_blocked_emulated).  λ goes in as a
 device tensor: PyTorch's CUDA division by a Python number multiplies by
 its reciprocal, which the kernel does not.
+
+The in-kernel noise (kernel C and I's seeds form) is held against the
+plain versions run on the card, whose philox_normals uses the same IEEE
+log/sqrt/sin/cos.  Kernels D and E sum their DFT products in another
+order than torch.matmul, so at tol=0 their fields are held to 1e-5 of the
+largest magnitude and their deviation from a float64 plain version to at
+most twice the float32 plain version's; at tol=1e-3 their sweep counts
+are held within one of the plain version's.
 """
 import numpy as np
 import pytest
 import torch
 
-from semiblind_tv_tpu_torch.ops import fused_step_cuda, tv_blocked_cuda, tv_cuda
+from semiblind_tv_tpu_torch.ops import fused_dft_cuda, fused_step_cuda, tv_blocked_cuda, tv_cuda
+from semiblind_tv_tpu_torch.ops.fourier import rdft_matrices
+from semiblind_tv_tpu_torch.ops.rng import philox_normals
 
 REL = 1e-5
 
@@ -163,6 +173,90 @@ def test_blocked_fused_step_matches_plain(cuda_device, sigma2, positivity):
         assert _rel_err(a, b) <= REL
 
 
+def _seeds(rng, B, dev):
+    return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (B, 2)).astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("shape,positivity", [((2, 48, 40), True), ((1, 17, 33), False)])
+def test_kernel_c_matches_plain(cuda_device, shape, positivity):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(cuda_device)
+    prox = x + _field(rng, shape, cuda_device, 0.1)
+    grad = _field(rng, shape, cuda_device, 0.01)
+    seeds = _seeds(rng, shape[0], cuda_device)
+    args = tuple(torch.tensor(v, device=cuda_device) for v in (1.9, 2.0, 0.02))
+    before = fused_step_cuda.RNG_LAUNCHES
+    k = fused_step_cuda.myula_prox_tv_rng(x, prox, grad, seeds, *args, 25, tol=0.0,
+                                          positivity=positivity)
+    p = fused_step_cuda.myula_prox_tv_rng_plain(x, prox, grad, seeds, *args, 25, tol=0.0,
+                                                positivity=positivity)
+    torch.cuda.synchronize()
+    assert fused_step_cuda.RNG_LAUNCHES == before + 1
+    for a, b in zip(k, p):
+        assert _rel_err(a, b) <= REL
+    # x = prox = grad = 0, γ = 0.5, no positivity: xn is the raw noise field
+    zero = torch.zeros_like(x)
+    xn = fused_step_cuda.myula_prox_tv_rng(zero, zero, zero, seeds, 0.5, 1.0, 0.02, 1,
+                                           positivity=False)[0]
+    assert _rel_err(xn, philox_normals(seeds, shape[1:])) <= REL
+
+
+@pytest.mark.parametrize("sigma2,positivity", [(1.0, True), (2.5, False)])
+def test_blocked_seeds_form_matches_plain(cuda_device, sigma2, positivity):
+    rng = np.random.default_rng(5)
+    shape = (2, 150, 210)
+    x = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(cuda_device)
+    prox = x + _field(rng, shape, cuda_device, 0.1)
+    grad = _field(rng, shape, cuda_device, 0.01)
+    seeds = _seeds(rng, 2, cuda_device)
+    args = tuple(torch.tensor(v, device=cuda_device) for v in (1.9, 2.0, 0.02, sigma2))
+    before = fused_step_cuda.BLOCKED_SEEDS_LAUNCHES
+    k = fused_step_cuda.myula_prox_tv_blocked(x, prox, grad, None, *args, n_sweeps=25,
+                                              tol=0.0, positivity=positivity, seeds=seeds)
+    p = fused_step_cuda.myula_prox_tv_blocked_plain(x, prox, grad, None, *args, n_sweeps=25,
+                                                    tol=0.0, positivity=positivity, seeds=seeds)
+    torch.cuda.synchronize()
+    assert fused_step_cuda.BLOCKED_SEEDS_LAUNCHES == before + 1
+    for a, b in zip(k, p):
+        assert _rel_err(a, b) <= REL
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 64), (2, 48, 35), (3, 40, 56)])
+@pytest.mark.parametrize("kernel", ["D", "E"])
+def test_dft_kernels_match_plain(cuda_device, shape, kernel):
+    rng = np.random.default_rng(6)
+    B, M, N = shape
+    x = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(cuda_device)
+    prox = x + _field(rng, shape, cuda_device, 0.1)
+    z = _field(rng, shape, cuda_device)
+    ghat = torch.fft.rfft2(_field(rng, shape, cuda_device, 0.025)).contiguous()
+    mats = rdft_matrices((M, N), torch.float32, cuda_device)
+    mats64 = rdft_matrices((M, N), torch.float64, cuda_device)
+    args = tuple(torch.tensor(v, device=cuda_device) for v in (1.9, 2.0, 0.02, 2.5))
+    fn, plain, counter = {
+        "D": (fused_dft_cuda.myula_prox_tv_dft, fused_dft_cuda.myula_prox_tv_dft_plain,
+              "DFT_LAUNCHES"),
+        "E": (fused_dft_cuda.myula_prox_tv_irdft, fused_dft_cuda.myula_prox_tv_irdft_plain,
+              "IRDFT_LAUNCHES"),
+    }[kernel]
+    before = getattr(fused_dft_cuda, counter)
+    k = fn(ghat, x, prox, z, mats, *args, tol=0.0)
+    p = plain(ghat, x, prox, z, mats, *args, tol=0.0)
+    p64 = plain(ghat.to(torch.complex128), x.double(), prox.double(), z.double(), mats64,
+                *(a.double() for a in args), tol=0.0)
+    torch.cuda.synchronize()
+    assert getattr(fused_dft_cuda, counter) == before + 1
+    for i in (0, 1, 3)[:len(k) - 1]:   # xn, proxn, x̂
+        a, b, c = (t if not t.is_complex() else torch.view_as_real(t) for t in (k[i], p[i], p64[i]))
+        assert _rel_err(a, b) <= REL
+        assert _rel_err(a.double(), c) <= 2 * _rel_err(b.double(), c)
+    assert _rel_err(k[2], p[2]) <= REL
+    # tol=1e-3: sweep counts within one of the plain version's
+    ki = fn(ghat, x, prox, z, mats, *args, return_iters=True)[-1]
+    pi = plain(ghat, x, prox, z, mats, *args, return_iters=True)[-1]
+    assert (ki.cpu() - pi.cpu()).abs().max() <= 1
+
+
 def test_wrappers_raise_on_bad_inputs(cuda_device):
     g = torch.zeros((1, 16, 16), device=cuda_device)
     with pytest.raises(TypeError):
@@ -175,3 +269,11 @@ def test_wrappers_raise_on_bad_inputs(cuda_device):
         tv_blocked_cuda.chambolle_prox_blocked(g.double(), 0.5, 5)
     with pytest.raises(ValueError):
         fused_step_cuda.myula_prox_tv_blocked(g, g, g, g.transpose(1, 2), 1.0, 1.0, 0.1)
+    with pytest.raises(ValueError):
+        fused_step_cuda.myula_prox_tv_rng(g, g, g, torch.zeros((2, 2), dtype=torch.int32,
+                                                               device=cuda_device), 1.0, 1.0, 0.1)
+    with pytest.raises(ValueError):
+        fused_dft_cuda.myula_prox_tv_dft(torch.zeros((1, 16, 9), dtype=torch.complex64,
+                                                     device=cuda_device), g, g, g,
+                                         rdft_matrices((16, 16), torch.float64, cuda_device),
+                                         1.0, 1.0, 0.1, 1.0)

@@ -162,12 +162,14 @@ def test_fixed_psf_params_stay_true_and_otf_is_hoisted():
     "in_kernel_rng", "fuse_dft", "fuse_irdft",
 ])
 def test_unported_options_raise(option):
-    """The options not ported yet raise; the log-scale options, ported since,
-    run (tests/test_torch_large_path.py holds them against the JAX step)."""
+    """The option not ported yet (posterior moments) raises; the log-scale
+    options and the in-kernel-noise and DFT-kernel options, ported since,
+    run (tests/test_torch_large_path.py and tests/test_torch_dft.py hold
+    them against the JAX package)."""
     cfg = _short(tcfg.gaussian_preset(fix_w1=False, fix_w2=False), samples=6, warmup=2)
     cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **{option: True}))
     problem = build_problem(synthetic_wheel(16), cfg, torch.Generator().manual_seed(0))
-    if option.endswith("_log_scale"):
+    if option != "track_posterior_moments":
         res = run_sapg(problem, torch.Generator().manual_seed(1))
         assert np.all(np.isfinite(res.thetas)) and np.all(np.isfinite(res.sigma2s))
         return
