@@ -65,9 +65,19 @@ Phases:
         and through the plain versions on the card: agree to 1e-3.
      d. SAPG chain-iter/s, w free: 512² B=1, 16 (fft+B, dft+B, D, E, C),
         256² B=1, 2 (fft+B, D), 2048² B=1 (I, I with seeds).
+  7. kernel J, the Chambolle-sweep variant probe (csrc/prox_variants.cu):
+     a. every one of the eleven modes against its plain version at 512²
+        (B=1, 16) and 480×352 (B=3, chain 0 stopping earlier): at tol=0 and
+        J's λ the float32 modes within REL_BOUND (bit-equal expected), the
+        bfloat16 modes within 1e-2 of their own distance from base; at a
+        decisive tol (λ = 20) equal sweep counts.  Base's time at 512² B=16.
+     b. J's own run (the probe's main path): every mode at 512² B=16 and B=1,
+        25 sweeps, 100 chained steps, one JSON line each, and the
+        production A2 kernel timed on the same inputs.
 
-Prints the card line, a JSON line of the kernels, and as the last line
-{"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
+Prints the card line, a JSON line of the kernels (each with its bound:
+see PEAK_FP32 below), and as the last line {"ok": true, "device": {...}}.
+Any failed check raises (exit code != 0).
 """
 from __future__ import annotations
 
@@ -75,7 +85,6 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -89,19 +98,59 @@ TILED, STREAMED = 1024, 2048
 KERNEL_SHAPES = [(1, TILED, TILED), (4, TILED, TILED), (1, STREAMED, STREAMED),
                  (2, STREAMED, STREAMED), (3, 1000, 1528)]
 DEMO_BUDGET = dict(samples=2000, warmup=1500, burn_in=1600)
+J_SRC = "semiblind_tv_tpu_torch/csrc/prox_variants.cu"
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its float operations over the H100 SXM's non-tensor float32 peak
+# and its bytes (each input read once, each output written once) over the
+# HBM rate, at 700 W (NVIDIA's H100 SXM data sheet).  An add,
+# subtract, multiply, divide or sqrt counts one operation (a divide or sqrt
+# takes several instructions, so the bound stays a lower bound); selects,
+# negations and C's integer Philox work are not counted.  Per pixel: a
+# Chambolle sweep 26 (div p − g/λ and ∇u 6, |∇u| 4, residual 8, update 8),
+# a prox 6 more (g/λ once, f = g − λ·div p), a MYULA step 16 more (the
+# update 9, its circular TV 7); sweeps are those this run's data ran.
+PEAK_FP32 = 67e12
+HBM_BYTES_PER_S = 3.35e12
+SWEEP_FLOP, PROX_FLOP, STEP_FLOP = 26, 6, 16
+
+
+def prox_work(B, M, N, sweeps, duals_io=False):
+    """(operations, bytes) of a prox over B chains that ran `sweeps` sweeps
+    in all: g in and f out, plus the duals in and out in the warm form."""
+    return (M * N * (SWEEP_FLOP * sweeps + PROX_FLOP * B),
+            4 * B * M * N * (6 if duals_io else 2))
+
+
+def step_work(B, M, N, sweeps, seeds=False):
+    """(operations, bytes) of a fused MYULA step: x, prox, grad and z (or
+    the (B, 2) seeds) in, xn, proxn and tv out."""
+    fields = 5 if seeds else 6
+    return (M * N * (SWEEP_FLOP * sweeps + (PROX_FLOP + STEP_FLOP) * B),
+            4 * B * M * N * fields + 4 * B + (8 * B if seeds else 0))
+
+
+def dft_step_work(B, M, N, sweeps, forward):
+    """(operations, bytes) of kernel D (forward=True) or E: the step plus the
+    DFT products (2 flops a multiply-add), Ĝ and the factor matrices in,
+    x̂ out (D)."""
+    nh = N // 2 + 1
+    flop, nbytes = step_work(B, M, N, sweeps)
+    gemm = (16 if forward else 8) * M * M * nh + (8 if forward else 4) * M * N * nh
+    mats = 4 * (2 * M * M + 2 * nh * N + (2 * N * nh if forward else 0))
+    spectra = 8 * B * M * nh * (2 if forward else 1)
+    return flop + B * gemm, nbytes + mats + spectra
+
+
+def bound(work):
+    """bound_ms and bound_by of (operations, bytes)."""
+    t_ops, t_bytes = work[0] / PEAK_FP32, work[1] / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def cuda_ms(fn, reps=20, warm=3):
@@ -208,6 +257,11 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
                   f"{mp * 1e3:.1f} us per call [{tag}]", flush=True)
             if (B, M, N) == (1, 512, 512):
                 stats[k]["ms"], stats[k]["plain_ms"] = mk, mp
+        if (B, M, N) == (1, 512, 512):   # the timed calls' work (tol=1e-3)
+            b_sweeps = tv_cuda.chambolle_prox_cuda(kb[0], lam_sapg, 25, return_state=False)[1]
+            stats["A2"]["work"] = prox_work(B, M, N, sum(it_k))
+            stats["A1"]["work"] = prox_work(B, M, N, sum(wit_k), duals_io=True)
+            stats["B"]["work"] = step_work(B, M, N, sum(b_sweeps.iters.tolist()))
     return stats
 
 
@@ -334,6 +388,10 @@ def phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag):
             row = name.split()[0]
             if B == 1 and name != f"{prox_row} warm":
                 stats[row].update(ms=mk, plain_ms=mp, per_sweep_ms=m1)
+        if B == 1:   # the timed calls' work (tol=1e-3; the step at σ² = 2.5)
+            step_its = tb.chambolle_prox_blocked(kb[0], lam_sapg, 25, return_state=False)[1]
+            stats[prox_row]["work"] = prox_work(B, M, N, sum(it_k))
+            stats[step_row]["work"] = step_work(B, M, N, sum(step_its.iters.tolist()))
     print(f"phase5 sweep counts of chains that stopped inside a pass: {exits}", flush=True)
     check(exits, "no chain stopped inside a pass: the redo was not exercised")
     return stats
@@ -506,6 +564,8 @@ def phase6_noise_kernels(torch, dev, fs, big, tag):
     """Kernel C and I's seeds form against their plain versions (the noise
     drawn from the same seeds), with B and I fed that noise as a field for
     the time comparison; the raw noise field's moments."""
+    from semiblind_tv_tpu_torch.ops import tv_blocked_cuda as tb
+    from semiblind_tv_tpu_torch.ops import tv_cuda
     from semiblind_tv_tpu_torch.ops.rng import philox_normals
 
     g0 = torch.Generator(device=dev)
@@ -549,7 +609,9 @@ def phase6_noise_kernels(torch, dev, fs, big, tag):
               f"{mf * 1e3:.1f} us per call [{tag}]", flush=True)
         check(max(e) <= REL_BOUND, f"{row} disagrees with its plain version: {e}")
         if B == 1 and M in (512, STREAMED):
-            stats[row].update(ms=mk, plain_ms=mp)
+            prox = tv_cuda.chambolle_prox_cuda if row == "C" else tb.chambolle_prox_blocked
+            its = prox(k[0], sc[2], 25, return_state=False)[1].iters.tolist()
+            stats[row].update(ms=mk, plain_ms=mp, work=step_work(B, M, N, sum(its), seeds=True))
 
     # x = prox = grad = 0, γ = 0.5, positivity off: xn is the raw noise field
     zero = torch.zeros((16, 512, 512), device=dev)
@@ -581,6 +643,7 @@ def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
           torch.tensor(2.5, device=dev))
     sc64 = tuple(v.double() for v in sc)
     iter_diffs = []
+    timed_sweeps = {}
     for B, M, N in ((1, 256, 256), (2, 256, 256), (1, 512, 512), (16, 512, 512), (3, 480, 353)):
         mats = rdft_matrices((M, N), torch.float32, dev)
         mats64 = rdft_matrices((M, N), torch.float64, dev)
@@ -629,6 +692,7 @@ def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
             check(all(abs(a - b) <= 1 for a, b in zip(ki, pi)),
                   f"{row} sweep counts differ by more than one: {ki} vs {pi}")
             iter_diffs += [(row, B, M, N, c, a, b) for c, (a, b) in enumerate(zip(ki, pi)) if a != b]
+            timed_sweeps[row] = sum(ki)
             check(any(1 < t < 25 for t in pi) or B != 3, "no chain stopped inside the run")
 
         # times on the same inputs: D, E and their plain versions; route B with
@@ -645,15 +709,21 @@ def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
                 x, prox, torch.fft.irfft2(ghat, s=(M, N)) / s2, z, *sc[:3])[0]),
             "B+matmul DFT": lambda: rfft2_matmul(fs.myula_prox_tv(
                 x, prox, irfft2_matmul(ghat, mats) / s2, z, *sc[:3])[0], mats),
+            # the library call for D's and E's products: torch.matmul (cuBLAS
+            # fp32, TF32 off) on the same shapes
+            "D products, torch.matmul": lambda: (irfft2_matmul(ghat, mats),
+                                                 rfft2_matmul(x, mats)),
+            "E products, torch.matmul": lambda: irfft2_matmul(ghat, mats),
         }
         ms = {name: cuda_ms(f) for name, f in calls.items()}
         print(f"phase6 time B={B} {M}x{N}: " + ", ".join(f"{n} {v * 1e3:.1f} us"
                                                          for n, v in ms.items()) + f" [{tag}]",
               flush=True)
-        if (B, M, N) == (1, 256, 256):
-            stats["D"].update(ms=ms["D"], plain_ms=ms["D plain"])
-        if (B, M, N) == (1, 512, 512):
-            stats["E"].update(ms=ms["E"], plain_ms=ms["E plain"])
+        for row, at in (("D", (1, 256, 256)), ("E", (1, 512, 512))):
+            if (B, M, N) == at:
+                stats[row].update(ms=ms[row], plain_ms=ms[f"{row} plain"],
+                                  library_ms=ms[f"{row} products, torch.matmul"],
+                                  work=dft_step_work(B, M, N, timed_sweeps[row], row == "D"))
     print(f"phase6 D/E chains whose tol=1e-3 sweep count differs from the plain version's "
           f"(row, B, M, N, chain, kernel, plain): {iter_diffs}", flush=True)
     return stats
@@ -765,6 +835,77 @@ def phase6_rates(torch, dev, build_problem, gaussian_preset, wheel_np, tag):
                   f" chain-iter/s [{tag}]", flush=True)
 
 
+def phase7_kernels(torch, dev, pv, tag):
+    """Kernel J: every mode against its plain version on the card, at tol=0
+    (J's λ) and at a decisive tol (λ = 20, chains stop after a few sweeps
+    with the residual far above round-off); then base's times at J's point."""
+    g0 = torch.Generator(device=dev)
+    g0.manual_seed(9)
+    stats = dict(max_abs_err=0.0, ms=None, plain_ms=None)
+    for B, M, N in ((1, 512, 512), (16, 512, 512), (3, 480, 352)):
+        g = torch.rand((B, M, N), generator=g0, device=dev) * 255.0
+        if B == 3:
+            g[0] *= 0.25   # stops earlier at the decisive tol
+        g = g.contiguous()
+        # the residual grows as √(M·N): 5 at 33×40 stops after 5–7 sweeps
+        decisive = 5.0 * (M * N / (33 * 40)) ** 0.5
+        for lam, tol in ((0.08, 0.0), (20.0, decisive)):
+            scal = torch.tensor([lam, 0.249, tol], device=dev)
+            f_base = pv.prox_variant_plain("base", g, scal, 25)[0]
+            report, sweeps = [], {}
+            for mode in pv.MODES:
+                fk, mk = pv.prox_variant(mode, g, scal, 25)
+                fp, mp = pv.prox_variant_plain(mode, g, scal, 25)
+                d = float((fk - fp).abs().max())
+                if mode in pv.BF16_MODES:   # the CPU test's bound for the bf16 modes
+                    lim = 1e-2 * float((fp - f_base).abs().max())
+                    check(d <= lim, f"J {mode} disagrees: {d} > {lim}")
+                else:
+                    check(rel(fk, fp) <= REL_BOUND, f"J {mode} disagrees: {rel(fk, fp)}")
+                sweeps[mode] = mk[:, 0].tolist()
+                check(sweeps[mode] == mp[:, 0].tolist(),
+                      f"J {mode} sweep counts differ: {sweeps[mode]} vs {mp[:, 0].tolist()}")
+                if mode == "base":
+                    stats["max_abs_err"] = max(stats["max_abs_err"], d)
+                report.append(f"{mode} {d:.2e} (err rel {rel(mk[:, 1], mp[:, 1]):.1e})")
+            torch.cuda.synchronize()
+            print(f"phase7 J B={B} {M}x{N} λ={lam} tol={tol:.4g}: max|kernel − plain| "
+                  + ", ".join(report) + f"; sweeps {json.dumps(sweeps)}", flush=True)
+            if tol:
+                check(max(sweeps["while"]) < 25, "the decisive tol stopped no chain")
+                check(B != 3 or sweeps["while"][0] < sweeps["while"][1],
+                      "chain 0 did not stop earlier")
+    g, scal = pv.probe_inputs(16, 512, dev)
+    its = pv.prox_variant("base", g, scal, 25)[1][:, 0]
+    stats.update(ms=cuda_ms(lambda: pv.prox_variant("base", g, scal, 25)),
+                 plain_ms=cuda_ms(lambda: pv.prox_variant_plain("base", g, scal, 25), reps=5),
+                 work=prox_work(16, 512, 512, int(its.sum())))
+    print(f"phase7 J base at 512x512 B=16: kernel {stats['ms'] * 1e3:.1f} us, plain "
+          f"{stats['plain_ms'] * 1e3:.1f} us per call [{tag}]", flush=True)
+    return stats
+
+
+def phase7_probe(torch, dev, pv, tv_cuda, tag):
+    """J's own run: every mode at 512² B=16 (J's default point) and B=1, 25
+    sweeps, 100 chained steps, and the production A2 kernel on the same
+    inputs.  Returns the launches of kernel J."""
+    pv.LAUNCHES = 0
+    for B in (16, 1):
+        g, scal = pv.probe_inputs(B, 512, dev)
+        f_base = pv.prox_variant("base", g, scal, 25)[0]
+        for mode in pv.MODES:
+            line = pv.probe_mode(mode, g, scal, 25, 100, f_base)
+            print(f"phase7 probe B={B} 512x512 " + json.dumps(line), flush=True)
+        a2 = cuda_ms(lambda: tv_cuda.chambolle_prox_cuda(g, scal[0], 25, tol=1e-3,
+                                                        return_state=False))
+        a2_iters = tv_cuda.chambolle_prox_cuda(g, scal[0], 25, tol=1e-3,
+                                               return_state=False)[1].iters
+        print(f"phase7 probe B={B} 512x512 A2 (chambolle_prox_cuda, fresh) on the same inputs: "
+              f"{a2 * 1e3 / B:.2f} us per prox per chain, {a2 * 1e3 / B / 25:.3f} us per sweep, "
+              f"iters {float(a2_iters[0])} [{tag}]", flush=True)
+    return {"J": pv.LAUNCHES}
+
+
 def main() -> int:
     import torch
 
@@ -775,6 +916,7 @@ def main() -> int:
     import numpy as np
 
     from semiblind_tv_tpu_torch import _build
+    from semiblind_tv_tpu_torch.benchmarks import probe_prox_variants as pv
     from semiblind_tv_tpu_torch.cli.run_demo import run_demo
     from semiblind_tv_tpu_torch.ops import fused_dft_cuda as fd
     from semiblind_tv_tpu_torch.ops import fused_step_cuda, tv_cuda
@@ -790,7 +932,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     # ---- phase 0 ------------------------------------------------------------
-    card = card_line()
+    card = pv.card_line()
     print(card, flush=True)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -918,6 +1060,12 @@ def main() -> int:
     new_stats = dict(noise_stats, **dft_stats)
     print(f"phase6 took {time.perf_counter() - t6:.1f} s", flush=True)
 
+    # ---- phase 7 ------------------------------------------------------------
+    t7 = time.perf_counter()
+    j_stats = {"J": phase7_kernels(torch, dev, pv, tag)}
+    j_launches = phase7_probe(torch, dev, pv, tv_cuda, tag)
+    print(f"phase7 took {time.perf_counter() - t7:.1f} s", flush=True)
+
     src = KERNELS_SRC
     rows = [
         ("chambolle_prox_cuda[warm]", src, "semiblind_tv_tpu/ops/tv_pallas.py:262", "A1",
@@ -942,13 +1090,19 @@ def main() -> int:
          new_stats, new_launches),
         ("myula_prox_tv_irdft", DFT_SRC, "semiblind_tv_tpu/ops/fused_step_pallas.py:496", "E",
          new_stats, new_launches),
+        ("prox_variant[base]", J_SRC, "benchmarks/probe_prox_variants.py:362", "J",
+         j_stats, j_launches),
     ]
     kernels = []
     for n, s, r, k, st, ln in rows:
         check(ln[k] > 0, f"kernel {k} was not launched on its path")
         kernels.append(dict(name=n, route="cuda", source=s, replaces=r, launches=ln[k],
                             max_abs_err=st[k]["max_abs_err"], ms=st[k]["ms"],
-                            plain_ms=st[k]["plain_ms"]))
+                            plain_ms=st[k]["plain_ms"], **bound(st[k]["work"]),
+                            library_ms=st[k].get("library_ms")))
+        print(f"row {k}: kernel {st[k]['ms'] * 1e3:.1f} us, bound {kernels[-1]['bound_ms'] * 1e3:.2f}"
+              f" us ({kernels[-1]['bound_by']}; {st[k]['work'][0]:.4g} operations, "
+              f"{st[k]['work'][1]:.4g} bytes), launches {ln[k]} [{tag}]", flush=True)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

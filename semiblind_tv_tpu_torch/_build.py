@@ -71,6 +71,10 @@ _SIGNATURES = {
         [_P] * 23 + [_I] * 4 + [_F, _F, _I, _P],
         _I,
     ),
+    "sb_prox_variant": (
+        [_I] + [_P] * 10 + [_I] * 4 + [_P],
+        _I,
+    ),
 }
 
 

@@ -37,20 +37,12 @@ import torch
 
 from semiblind_tv_tpu_torch.metrics import metrics
 from semiblind_tv_tpu_torch.runtime.config import preset
-from semiblind_tv_tpu_torch.runtime.problem import build_problem
+from semiblind_tv_tpu_torch.runtime.problem import build_problem, resolve_device
 from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
 from semiblind_tv_tpu_torch.solvers.salsa import salsa_tv
 from semiblind_tv_tpu_torch.utils.images import load_image
 
 __all__ = ["run_demo", "main", "resolve_device"]
-
-
-def resolve_device(device) -> torch.device:
-    """The requested device; raises if it is CUDA and no card is present."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
-    return device
 
 
 def run_demo(

@@ -32,7 +32,7 @@ from semiblind_tv_tpu_torch.runtime.config import DemoConfig
 
 __all__ = [
     "Problem", "build_problem", "synthesize_observation", "make_psf_model",
-    "problem_from_arrays", "resolve_fft_mode",
+    "problem_from_arrays", "resolve_fft_mode", "resolve_device",
 ]
 
 
@@ -46,6 +46,15 @@ def make_psf_model(cfg: DemoConfig, dtype=torch.float32) -> PsfModel:
     if cfg.psf == "isotropic_gaussian":
         raise NotImplementedError("the isotropic Gaussian family is not ported yet")
     raise ValueError(f"unknown psf family: {cfg.psf!r}")
+
+
+def resolve_device(device) -> torch.device:
+    """The requested device; raises if it is CUDA and no card is present
+    (the entry points default to the card and never fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
+    return device
 
 
 def resolve_fft_mode(fft_mode: Optional[str]) -> str:
@@ -142,18 +151,19 @@ def build_problem(
     cfg: DemoConfig,
     generator: Optional[torch.Generator] = None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     noise=None,
     fft_mode: Optional[str] = None,
 ) -> Problem:
     """Assemble a Problem from a ground-truth image and a DemoConfig.
 
     The observation noise is drawn from `generator` (which must live on
-    `device`), or given as `noise`, a standard-normal field of x's shape.
+    `device`: the card unless the caller asks for the CPU), or given as
+    `noise`, a standard-normal field of x's shape.
     fft_mode (default cfg.sapg.fft_mode, through resolve_fft_mode) selects
     the blur operator's transforms, the observation's included, as in the
     JAX package."""
-    device = torch.device(device)
+    device = resolve_device(device)
     x = torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
     model = make_psf_model(cfg, dtype)
     mode = resolve_fft_mode(cfg.sapg.fft_mode if fft_mode is None else fft_mode)
@@ -191,15 +201,16 @@ def build_problem(
     )
 
 
-def problem_from_arrays(cfg: DemoConfig, arrays: Dict[str, np.ndarray], device="cpu",
+def problem_from_arrays(cfg: DemoConfig, arrays: Dict[str, np.ndarray], device="cuda",
                         dtype=torch.float32, fft_mode: Optional[str] = None) -> Problem:
     """The port's Problem from the fields of the JAX package's Problem, given
     as numpy arrays (x_true, y, yhat, H_true, kernel_true, sigma_true,
     sigma2_init, sigma2_box, ev_max, Lf, lambda_myula, gamma; gamma_max is
     derived when absent), so the two packages compute on the same problem.
     fft_mode is the JAX Problem's `blur.fft_mode` (default: resolved from
-    cfg.sapg.fft_mode); in 'dft' mode the rdft matrices are rebuilt."""
-    device = torch.device(device)
+    cfg.sapg.fft_mode); in 'dft' mode the rdft matrices are rebuilt.  The
+    problem lives on the card unless `device` asks for the CPU."""
+    device = resolve_device(device)
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
 
     def real(name):

@@ -153,7 +153,7 @@ def _jax_and_port_problems(family, kw, **sapg):
     tc = _short(tcfg.preset(family, **kw), **sapg)
     x = synthetic_wheel(SIZE)
     jp = j_build_problem(x, jc, jax.random.key(1), dtype=jnp.float64)
-    tp = problem_from_arrays(tc, jax_problem_arrays(jp), dtype=torch.float64,
+    tp = problem_from_arrays(tc, jax_problem_arrays(jp), device="cpu", dtype=torch.float64,
                              fft_mode=jp.blur.fft_mode)
     return jc, jp, tp, x
 
@@ -181,7 +181,7 @@ def _port_run(cfg, route=None, noise_seed=2, n_chains=1, **kw):
     """A 30-step port run on a 32² wheel with numpy draws (float64)."""
     x = synthetic_wheel(SIZE)
     obs = np.random.default_rng(0).standard_normal(x.shape)
-    problem = build_problem(x, cfg, dtype=torch.float64, noise=obs)
+    problem = build_problem(x, cfg, dtype=torch.float64, device="cpu", noise=obs)
     rng = np.random.default_rng(noise_seed)
     draws = [rng.standard_normal((n_chains,) + x.shape) for _ in range(40)]
     return est.run_sapg(problem, n_chains=n_chains, noise=replay(draws), route=route, **kw)

@@ -51,7 +51,7 @@ def test_log_scale_step_matches_jax(option):
     tc = _with(tcfg.gaussian_preset(fix_w1=False, fix_w2=False), **{option: True})
     x = synthetic_wheel(SIZE)
     jp = j_build_problem(x, jc, jax.random.key(1), dtype=jnp.float64)
-    tp = problem_from_arrays(tc, jax_problem_arrays(jp), dtype=torch.float64)
+    tp = problem_from_arrays(tc, jax_problem_arrays(jp), device="cpu", dtype=torch.float64)
 
     jstep, jaux = j_make_sapg_step(jp, n_chains=1)
     theta0 = jnp.float64(jc.theta.init)
@@ -85,7 +85,7 @@ def test_theta_log_scale_eb_is_the_geometric_mean():
             theta_log_scale=True, positivity=False))
     x = synthetic_wheel(SIZE)
     gen = torch.Generator().manual_seed(2)
-    res = run_sapg(build_problem(x, tc, gen, dtype=torch.float64), gen)
+    res = run_sapg(build_problem(x, tc, gen, dtype=torch.float64, device="cpu"), gen)
     window = res.thetas[tc.sapg.burn_in - 1:]
     np.testing.assert_allclose(res.theta_EB, np.exp(np.mean(np.log(window))), rtol=1e-12)
     lo, hi = tc.theta.box
@@ -116,7 +116,7 @@ def _small_problem(family="gaussian"):
     kw = dict(fix_w1=False, fix_w2=False) if family == "gaussian" else {}
     tc = _with(tcfg.preset(family, **kw), samples=8, warmup=3, burn_in=6)
     x = synthetic_wheel(SIZE)
-    return build_problem(x, tc, torch.Generator().manual_seed(0), dtype=torch.float64,
+    return build_problem(x, tc, torch.Generator().manual_seed(0), dtype=torch.float64, device="cpu",
                          noise=np.random.default_rng(0).standard_normal(x.shape))
 
 

@@ -24,11 +24,18 @@ order than torch.matmul, so at tol=0 their fields are held to 1e-5 of the
 largest magnitude and their deviation from a float64 plain version to at
 most twice the float32 plain version's; at tol=1e-3 their sweep counts
 are held within one of the plain version's.
+
+Kernel J (csrc/prox_variants.cu) runs every mode of the probe against its
+plain version with the bounds of tests/test_torch_prox_variants.py: f
+within 1e-6 of max|f| in the float32 modes, within 1e-2 of the mode's own
+distance from base in the bfloat16 modes, equal sweep counts; roll and
+rollmul equal while exactly.
 """
 import numpy as np
 import pytest
 import torch
 
+from semiblind_tv_tpu_torch.benchmarks import probe_prox_variants
 from semiblind_tv_tpu_torch.ops import fused_dft_cuda, fused_step_cuda, tv_blocked_cuda, tv_cuda
 from semiblind_tv_tpu_torch.ops.fourier import rdft_matrices
 from semiblind_tv_tpu_torch.ops.rng import philox_normals
@@ -255,6 +262,37 @@ def test_dft_kernels_match_plain(cuda_device, shape, kernel):
     ki = fn(ghat, x, prox, z, mats, *args, return_iters=True)[-1]
     pi = plain(ghat, x, prox, z, mats, *args, return_iters=True)[-1]
     assert (ki.cpu() - pi.cpu()).abs().max() <= 1
+
+
+@pytest.mark.parametrize("mode", probe_prox_variants.MODES)
+def test_prox_variant_matches_plain(cuda_device, mode):
+    pv = probe_prox_variants
+    g = (np.random.default_rng(8).random((3, 64, 64)) * 255.0).astype(np.float32)
+    g[0] *= 0.25   # stops earlier at the decisive tol
+    g = torch.from_numpy(g).to(cuda_device)
+    for lam, tol in ((0.08, 0.0), (20.0, 8.0)):
+        scal = torch.tensor([lam, 0.249, tol], device=cuda_device)
+        before = pv.LAUNCHES
+        f, meta = pv.prox_variant(mode, g, scal, 25)
+        pf, pmeta = pv.prox_variant_plain(mode, g, scal, 25)
+        torch.cuda.synchronize()
+        assert pv.LAUNCHES == before + 1
+        d = float((f - pf).abs().max())
+        if mode in pv.BF16_MODES:
+            f_base = pv.prox_variant_plain("base", g, scal, 25)[0]
+            assert d <= 1e-2 * float((pf - f_base).abs().max())
+        else:
+            assert d <= 1e-6 * float(pf.abs().max())
+        assert torch.equal(meta[:, 0], pmeta[:, 0])
+        if tol and mode not in pv.NO_RESIDUAL:
+            k = meta[:, 0].tolist()
+            assert max(k) < 25 and (k[0] < k[1] or mode == "every5"), k
+            assert _rel_err(meta[:, 1], pmeta[:, 1]) <= 1e-3
+        if mode in ("roll", "rollmul"):
+            wf, wmeta = pv.prox_variant("while", g, scal, 25)
+            assert torch.equal(f, wf) and torch.equal(meta, wmeta)
+    with pytest.raises(ValueError):
+        pv.prox_variant(mode, g, scal[:2].contiguous(), 25)
 
 
 def test_wrappers_raise_on_bad_inputs(cuda_device):

@@ -142,7 +142,8 @@ def test_in_kernel_rng_on_cpu_is_the_default_trajectory_and_jax():
     draws = jax_chain_draws(jax.random.key(2), 1, x.shape, (5 - 1) + (30 - 1))
     tr = est.run_sapg(tp, noise=replay(draws))
     tr0 = est.run_sapg(problem_from_arrays(_with(tp.cfg, in_kernel_rng=False),
-                                           jax_problem_arrays(jp), dtype=torch.float64),
+                                           jax_problem_arrays(jp), device="cpu",
+                                           dtype=torch.float64),
                        noise=replay(draws))
     np.testing.assert_array_equal(tr.thetas, tr0.thetas)
     np.testing.assert_array_equal(tr.X_last, tr0.X_last)
@@ -164,7 +165,7 @@ def test_forced_in_kernel_rng_equals_the_philox_fed_default(route):
                     seeds=lambda B: next(it))
     it = iter(seeds)
     x = synthetic_wheel(SIZE)
-    problem = build_problem(x, base, dtype=torch.float64,
+    problem = build_problem(x, base, dtype=torch.float64, device="cpu",
                             noise=np.random.default_rng(0).standard_normal(x.shape))
     ref = est.run_sapg(problem, n_chains=2, route=route,
                        noise=lambda shape: philox_normals(next(it), shape[1:], torch.float64))

@@ -71,7 +71,7 @@ def test_one_step_matches_spatial_oracle():
     cfg = tcfg.gaussian_preset(fix_w1=False, fix_w2=False)
     x = synthetic_wheel(SIZE)
     obs = np.random.default_rng(0).standard_normal(x.shape)
-    problem = build_problem(x, cfg, dtype=torch.float64, noise=obs)
+    problem = build_problem(x, cfg, dtype=torch.float64, device="cpu", noise=obs)
     step, aux = make_sapg_step(problem, n_chains=1)
 
     theta0, sigma0, params0 = aux["theta0"], problem.sigma2_init, dict(aux["params0"])
@@ -119,7 +119,7 @@ def test_trajectory_matches_jax(family, n_chains, fused):
     jp = j_build_problem(x, jc, jax.random.key(1), dtype=jnp.float64)
     jr = j_run_sapg(jp, jax.random.key(2), n_chains=n_chains)
 
-    tp = problem_from_arrays(tc, jax_problem_arrays(jp), dtype=torch.float64)
+    tp = problem_from_arrays(tc, jax_problem_arrays(jp), device="cpu", dtype=torch.float64)
     n_steps = (jc.sapg.warmup - 1) + (jc.sapg.samples - 1)
     draws = jax_chain_draws(jax.random.key(2), n_chains, x.shape, n_steps)
     tr = run_sapg(tp, n_chains=n_chains, noise=replay(draws))
@@ -147,7 +147,7 @@ def test_fixed_psf_params_stay_true_and_otf_is_hoisted():
     cfg = _short(tcfg.gaussian_preset(), samples=12, warmup=3)
     x = synthetic_wheel(SIZE)
     gen = torch.Generator().manual_seed(4)
-    problem = build_problem(x, cfg, gen, dtype=torch.float64)
+    problem = build_problem(x, cfg, gen, dtype=torch.float64, device="cpu")
     res = run_sapg(problem, gen)
     np.testing.assert_allclose(res.psf_param_traces["w1"][1:], 0.4)
     np.testing.assert_allclose(res.psf_param_traces["w2"][1:], 0.3)
@@ -168,7 +168,8 @@ def test_unported_options_raise(option):
     them against the JAX package)."""
     cfg = _short(tcfg.gaussian_preset(fix_w1=False, fix_w2=False), samples=6, warmup=2)
     cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **{option: True}))
-    problem = build_problem(synthetic_wheel(16), cfg, torch.Generator().manual_seed(0))
+    problem = build_problem(synthetic_wheel(16), cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
     if option != "track_posterior_moments":
         res = run_sapg(problem, torch.Generator().manual_seed(1))
         assert np.all(np.isfinite(res.thetas)) and np.all(np.isfinite(res.sigma2s))
@@ -179,7 +180,7 @@ def test_unported_options_raise(option):
 
 def test_mesh_argument_raises():
     problem = build_problem(synthetic_wheel(16), tcfg.gaussian_preset(),
-                            torch.Generator().manual_seed(0))
+                            torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError):
         run_sapg(problem, torch.Generator().manual_seed(1), mesh=object())
 

@@ -78,3 +78,22 @@ def test_cuda_request_without_a_card_raises():
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         main(["--size", "16", "--image", "synthetic", "--samples", "4", "--warmup", "2"])
+
+
+def test_problem_entry_points_default_to_the_card():
+    """build_problem and problem_from_arrays run on the card unless the
+    caller asks for the CPU; without a card the default raises."""
+    import inspect
+
+    from semiblind_tv_tpu_torch.runtime import problem
+    from semiblind_tv_tpu_torch.runtime.config import gaussian_preset
+
+    for fn in (problem.build_problem, problem.problem_from_arrays):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    x = np.zeros((16, 16))
+    assert problem.build_problem(x, gaussian_preset(), noise=x, device="cpu").device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            problem.build_problem(x, gaussian_preset(), noise=x)
+        with pytest.raises(RuntimeError):
+            problem.problem_from_arrays(gaussian_preset(), {})
