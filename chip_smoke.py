@@ -53,8 +53,17 @@ Phases:
         D and E at 256² (B=1, 2), 512² (B=1, 16) and 480×353 (B=3, one chain
         stopping inside the run) at tol=0: within 1e-5 of the float32 plain
         version and at most 2× its deviation from a float64 plain version;
-        at tol=1e-3 sweep counts within one.  Times of D, E, their plain
-        versions and route B with cuFFT and with the matmul DFT transforms.
+        at tol=1e-3 sweep counts within one.  D's and E's products alone
+        through the 3×TF32 wgmma GEMM (`fused_dft_cuda.dft_products`) at
+        the same shapes: within 1e-5 of torch.matmul in float32 and at most
+        2× its deviation from float64 (the ratios printed).  Times of D, E,
+        their plain versions, route B with cuFFT and with the matmul DFT
+        transforms, and of the products through the GEMM beside torch.matmul
+        (cuBLAS fp32, TF32 off); at 256² B=1 the host µs of a D, E,
+        products and B+cuFFT call, split into the wrapper's Python and its
+        C call, and the C side's unit cost of a tensor-map encoding and of
+        an attribute set.  The library's SASS holds the GEMM's HGMMA TF32
+        instructions (cuobjdump).
      b. `run_demo` (2000/1500 samples): 512² published Gaussian in dft mode
         with fuse_dft (D) and with fuse_irdft (E; B runs the warm-up),
         512² with in_kernel_rng (C), 256² B=2 in dft mode (the auto rule
@@ -76,11 +85,13 @@ Phases:
         production A2 kernel timed on the same inputs.
 
 Prints the card line, a JSON line of the kernels (each with its bound:
-see PEAK_FP32 below), and as the last line {"ok": true, "device": {...}}.
+see PEAK_FP32 below; D and E also with their products' time and TF32
+bound), and as the last line {"ok": true, "device": {...}}.
 Any failed check raises (exit code != 0).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -111,6 +122,9 @@ J_SRC = "semiblind_tv_tpu_torch/csrc/prox_variants.cu"
 # update 9, its circular TV 7); sweeps are those this run's data ran.
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# D's and E's products run in 3×TF32 on the tensor cores: their bound counts
+# three passes of each product at the dense TF32 rate (same data sheet)
+PEAK_TF32 = 495e12
 SWEEP_FLOP, PROX_FLOP, STEP_FLOP = 26, 6, 16
 
 
@@ -141,11 +155,92 @@ def dft_step_work(B, M, N, sweeps, forward):
     return flop + B * gemm, nbytes + mats + spectra
 
 
-def bound(work):
-    """bound_ms and bound_by of (operations, bytes)."""
-    t_ops, t_bytes = work[0] / PEAK_FP32, work[1] / HBM_BYTES_PER_S
-    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+def dft_products_work(B, M, N, forward):
+    """(TF32 operations, bytes) of D's (forward=True) or E's products alone:
+    three tensor-core passes of each product (2 flops a multiply-add); Ĝ
+    and the factor matrices in, grad out, and for D x in and x̂ out."""
+    nh = N // 2 + 1
+    gemm = (16 if forward else 8) * M * M * nh + (8 if forward else 4) * M * N * nh
+    mats = 4 * (2 * M * M + 2 * nh * N + (2 * N * nh if forward else 0))
+    fields = (8 * B * M * nh + 4 * B * M * N) * (2 if forward else 1)
+    return 3 * B * gemm, mats + fields
+
+
+def bound(work, peak=PEAK_FP32, key="bound"):
+    """{key}_ms and {key}_by of (operations, bytes) at `peak` operations/s."""
+    t_ops, t_bytes = work[0] / peak, work[1] / HBM_BYTES_PER_S
+    return {f"{key}_ms": max(t_ops, t_bytes) * 1e3,
+            f"{key}_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def products_profile(torch, fn, calls=5):
+    """Device µs a call of each kernel that fn launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / calls) for e in prof.key_averages()
+            if e.device_time_total > 0]
+    short = lambda k: k.replace("(anonymous namespace)::", "").split("(")[0]  # noqa: E731
+    return ", ".join(f"{short(k)} {t:.1f}" for k, t in sorted(rows, key=lambda r: -r[1]))
+
+
+def host_us(torch, lib, entries, reps=50, warm=3):
+    """{name: (host µs of one fn() call, host µs of the kernel library's C
+    entry within it)} for entries {name: (fn, C entry)}: medians over
+    `reps` rounds that call each fn once in turn, each call started on an
+    idle card so that no launch waits for a queue slot.  The difference is
+    the wrapper's Python (checks, allocations, ctypes marshalling, and any
+    PyTorch calls around the kernel); the C call is the launches and what
+    the C side does around them."""
+    orig = {entry: getattr(lib, entry) for _, entry in entries.values()}
+    total = {name: [] for name in entries}
+    c_times = {name: [] for name in entries}
+    now = [None]   # the entry being timed
+
+    def timer(c_fn):
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = c_fn(*args)
+            c_times[now[0]].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    for entry, c_fn in orig.items():
+        setattr(lib, entry, timer(c_fn))
+    try:
+        for _ in range(warm + reps):
+            for name, (fn, _) in entries.items():
+                now[0] = name
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                total[name].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    finally:
+        for entry, c_fn in orig.items():
+            setattr(lib, entry, c_fn)
+    out = {}
+    for name in entries:
+        check(len(c_times[name]) == warm + reps,
+              f"{name}: its C entry ran {len(c_times[name])} times in {warm + reps} calls")
+        out[name] = tuple(statistics.median(v[warm:]) * 1e6 for v in (total[name], c_times[name]))
+    return out
+
+
+def sass_hgmma_tf32(lib_path):
+    """The library's HGMMA TF32 instructions (cuobjdump -sass)."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True)
+    return [ln.strip() for ln in out.stdout.splitlines() if "HGMMA" in ln and "TF32" in ln]
 
 
 def check(cond, msg):
@@ -633,11 +728,18 @@ def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
     """Kernels D and E against their plain versions in float32 and float64
     on the card, and the D step against route B with cuFFT and with the
     torch.matmul DFT transforms on the same inputs."""
+    from semiblind_tv_tpu_torch import _build
     from semiblind_tv_tpu_torch.ops.fourier import irfft2_matmul, rdft_matrices, rfft2_matmul
 
+    hgmma = sass_hgmma_tf32(_build.LIB_PATH)
+    notes = [ln.strip() for ln in _build.BUILD_LOG.splitlines() if "wgmma" in ln.lower()]
+    print(f"phase6 SASS: {len(hgmma)} HGMMA TF32 instructions in the library, e.g. "
+          f"{hgmma[:1]}; ptxas on wgmma: {notes or 'nothing'}", flush=True)
+    check(hgmma, "the DFT GEMM issues no HGMMA TF32 instruction")
     g0 = torch.Generator(device=dev)
     g0.manual_seed(7)
     stats = {k: dict(max_abs_err=0.0, ms=None, plain_ms=None) for k in ("D", "E")}
+    real = lambda t: torch.view_as_real(t) if t.is_complex() else t  # noqa: E731
     lam_theta = torch.tensor(0.02, device=dev)
     sc = (torch.tensor(1.9, device=dev), torch.tensor(2.0, device=dev), lam_theta,
           torch.tensor(2.5, device=dev))
@@ -671,7 +773,6 @@ def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
             k = fn(*ins, mats, *sc, tol=0.0)
             p = plain(*ins, mats, *sc, tol=0.0)
             p64 = plain(*ins64, mats64, *sc64, tol=0.0)
-            real = lambda t: torch.view_as_real(t) if t.is_complex() else t  # noqa: E731
             errs, ratios = [], []
             for i in [0, 1, 3][:len(k) - 1]:   # xn, proxn, x̂
                 a, b, c = real(k[i]), real(p[i]), real(p64[i])
@@ -695,6 +796,24 @@ def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
             timed_sweeps[row] = sum(ki)
             check(any(1 < t < 25 for t in pi) or B != 3, "no chain stopped inside the run")
 
+        # D's and E's products alone through the 3×TF32 GEMM against
+        # torch.matmul in float32 and float64 on the same inputs
+        grad, xh = fd.dft_products(ghat, x, mats)
+        ref32 = (irfft2_matmul(ghat, mats), rfft2_matmul(x, mats))
+        ref64 = (irfft2_matmul(ins64[0], mats64), rfft2_matmul(ins64[1], mats64))
+        p_err, p_ratio = [], []
+        for a, b, c in zip((grad, xh), ref32, ref64):
+            a, b, c = real(a), real(b), real(c)
+            p_err.append(rel(a, b))
+            p_ratio.append(rel(a.double(), c) / max(rel(b.double(), c), 1e-30))
+        torch.cuda.synchronize()
+        print(f"phase6 products B={B} {M}x{N}: rel to torch.matmul f32 grad/x̂ "
+              f"{'/'.join(f'{v:.3e}' for v in p_err)} (bound {REL_BOUND:g}); deviation from "
+              f"f64 over torch.matmul f32's {'/'.join(f'{v:.3f}' for v in p_ratio)} (bound 2)",
+              flush=True)
+        check(max(p_err) <= REL_BOUND, "the products disagree with torch.matmul")
+        check(max(p_ratio) <= 2.0, "the products deviate from float64 more than 2x torch.matmul")
+
         # times on the same inputs: D, E and their plain versions; route B with
         # cuFFT (the default) and with the torch.matmul DFT transforms
         s2 = sc[3]
@@ -714,8 +833,32 @@ def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
             "D products, torch.matmul": lambda: (irfft2_matmul(ghat, mats),
                                                  rfft2_matmul(x, mats)),
             "E products, torch.matmul": lambda: irfft2_matmul(ghat, mats),
+            "D products, tf32x3 GEMM": lambda: fd.dft_products(ghat, x, mats),
+            "E products, tf32x3 GEMM": lambda: fd.dft_products(ghat, x, mats, forward=False),
         }
         ms = {name: cuda_ms(f) for name, f in calls.items()}
+        if (B, M, N) == (1, 256, 256):
+            # where one chain's host time goes: each wrapper's Python and its
+            # C call, and the unit costs of the work the C side now caches
+            lib = _build.load_library()
+            costs = (ctypes.c_double * 2)()
+            buf = torch.zeros(2 * 64 * 64, device=dev)
+            check(lib.sb_dft_host_costs(buf.data_ptr(), 1000, costs) == 0,
+                  "sb_dft_host_costs failed")
+            split = host_us(torch, lib, {
+                name: (calls[name], entry) for name, entry in (
+                    ("D", "sb_myula_prox_tv_dft"), ("E", "sb_myula_prox_tv_irdft"),
+                    ("D products, tf32x3 GEMM", "sb_dft_products"),
+                    ("B+cuFFT", "sb_myula_step"))})
+            print(f"phase6 host µs a call B={B} {M}x{N}: " + ", ".join(
+                f"{name} {tot:.1f} (C call {c_call:.1f}, Python {tot - c_call:.1f}; "
+                f"CUDA events {ms[name] * 1e3:.1f})" for name, (tot, c_call) in split.items())
+                + f"; one tensor-map encoding {costs[0]:.2f} µs, one shared-memory attribute "
+                f"set {costs[1]:.2f} µs (8 and 4 a D call without the caches) [{tag}]",
+                flush=True)
+        if (B, M, N) in ((1, 256, 256), (16, 512, 512)):
+            print(f"phase6 products B={B} {M}x{N}, device µs a call by kernel: "
+                  + products_profile(torch, lambda: fd.dft_products(ghat, x, mats)), flush=True)
         print(f"phase6 time B={B} {M}x{N}: " + ", ".join(f"{n} {v * 1e3:.1f} us"
                                                          for n, v in ms.items()) + f" [{tag}]",
               flush=True)
@@ -723,7 +866,10 @@ def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
             if (B, M, N) == at:
                 stats[row].update(ms=ms[row], plain_ms=ms[f"{row} plain"],
                                   library_ms=ms[f"{row} products, torch.matmul"],
-                                  work=dft_step_work(B, M, N, timed_sweeps[row], row == "D"))
+                                  work=dft_step_work(B, M, N, timed_sweeps[row], row == "D"),
+                                  products_ms=ms[f"{row} products, tf32x3 GEMM"],
+                                  **bound(dft_products_work(B, M, N, row == "D"), PEAK_TF32,
+                                          "products_bound"))
     print(f"phase6 D/E chains whose tol=1e-3 sweep count differs from the plain version's "
           f"(row, B, M, N, chain, kernel, plain): {iter_diffs}", flush=True)
     return stats
@@ -1099,7 +1245,9 @@ def main() -> int:
         kernels.append(dict(name=n, route="cuda", source=s, replaces=r, launches=ln[k],
                             max_abs_err=st[k]["max_abs_err"], ms=st[k]["ms"],
                             plain_ms=st[k]["plain_ms"], **bound(st[k]["work"]),
-                            library_ms=st[k].get("library_ms")))
+                            library_ms=st[k].get("library_ms"),
+                            **{p: st[k][p] for p in ("products_ms", "products_bound_ms",
+                                                     "products_bound_by") if p in st[k]}))
         print(f"row {k}: kernel {st[k]['ms'] * 1e3:.1f} us, bound {kernels[-1]['bound_ms'] * 1e3:.2f}"
               f" us ({kernels[-1]['bound_by']}; {st[k]['work'][0]:.4g} operations, "
               f"{st[k]['work'][1]:.4g} bytes), launches {ln[k]} [{tag}]", flush=True)

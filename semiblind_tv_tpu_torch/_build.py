@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["load_library", "BUILD_DIR", "SOURCES"]
+__all__ = ["load_library", "BUILD_DIR", "LIB_PATH", "SOURCES"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -33,6 +33,7 @@ SOURCES = tuple(sorted(glob.glob(os.path.join(_CSRC, "*.cu"))))
 _HEADERS = tuple(sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 _LIB_NAME = "libsemiblind_tv_kernels.so"
+LIB_PATH = os.path.join(BUILD_DIR, _LIB_NAME)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,6 +45,7 @@ BUILD_SECONDS = None    # wall time of that build (None: the library was cached)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "sb_num_tiles": ([_I, _I], _I),
@@ -64,13 +66,18 @@ _SIGNATURES = {
         _I,
     ),
     "sb_myula_prox_tv_dft": (
-        [_P] * 27 + [_I] * 4 + [_F, _F, _I, _P],
+        [_P] * 29 + [_L] + [_I] * 4 + [_F, _F, _I, _P],
         _I,
     ),
     "sb_myula_prox_tv_irdft": (
-        [_P] * 23 + [_I] * 4 + [_F, _F, _I, _P],
+        [_P] * 24 + [_L] + [_I] * 4 + [_F, _F, _I, _P],
         _I,
     ),
+    "sb_dft_products": (
+        [_P] * 14 + [_L] + [_I] * 3 + [_P],
+        _I,
+    ),
+    "sb_dft_host_costs": ([_P, _I, _P], _I),
     "sb_prox_variant": (
         [_I] + [_P] * 10 + [_I] * 4 + [_P],
         _I,
@@ -138,7 +145,7 @@ def load_library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, _LIB_NAME)
+    lib_path = LIB_PATH
     stamp = lib_path + ".sha256"
     digest = _digest()
     cached = os.path.isfile(lib_path) and os.path.isfile(stamp)

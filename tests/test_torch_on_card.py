@@ -23,7 +23,11 @@ log/sqrt/sin/cos.  Kernels D and E sum their DFT products in another
 order than torch.matmul, so at tol=0 their fields are held to 1e-5 of the
 largest magnitude and their deviation from a float64 plain version to at
 most twice the float32 plain version's; at tol=1e-3 their sweep counts
-are held within one of the plain version's.
+are held within one of the plain version's.  Their products alone
+(`fused_dft_cuda.dft_products`, the 3×TF32 wgmma GEMM) are held to
+torch.matmul with the same bounds, at a ragged 480×353 (B=3), at 256²
+(B=1, the split-K plan) and at 512² (B=2), and their scratch buffers to
+the layouts of the CPU emulation (`dft_products_emulated`).
 
 Kernel J (csrc/prox_variants.cu) runs every mode of the probe against its
 plain version with the bounds of tests/test_torch_prox_variants.py: f
@@ -37,7 +41,7 @@ import torch
 
 from semiblind_tv_tpu_torch.benchmarks import probe_prox_variants
 from semiblind_tv_tpu_torch.ops import fused_dft_cuda, fused_step_cuda, tv_blocked_cuda, tv_cuda
-from semiblind_tv_tpu_torch.ops.fourier import rdft_matrices
+from semiblind_tv_tpu_torch.ops.fourier import irfft2_matmul, rdft_matrices, rfft2_matmul
 from semiblind_tv_tpu_torch.ops.rng import philox_normals
 
 REL = 1e-5
@@ -262,6 +266,49 @@ def test_dft_kernels_match_plain(cuda_device, shape, kernel):
     ki = fn(ghat, x, prox, z, mats, *args, return_iters=True)[-1]
     pi = plain(ghat, x, prox, z, mats, *args, return_iters=True)[-1]
     assert (ki.cpu() - pi.cpu()).abs().max() <= 1
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256), (3, 480, 353), (2, 512, 512)])
+@pytest.mark.parametrize("kernel", ["D", "E"])
+def test_dft_kernels_match_plain_at_the_gemm_plans(cuda_device, shape, kernel):
+    """D and E through each tile plan of the GEMM (split-K, 64×64, 128×128
+    grids of several waves) with the bounds of test_dft_kernels_match_plain."""
+    test_dft_kernels_match_plain(cuda_device, shape, kernel)
+
+
+@pytest.mark.parametrize("shape", [(3, 480, 353), (1, 256, 256), (2, 512, 512)])
+def test_dft_gemm_products_match_torch_matmul(cuda_device, shape):
+    B, M, N = shape
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(cuda_device)
+    ghat = torch.fft.rfft2(_field(rng, shape, cuda_device)).contiguous()
+    mats = rdft_matrices((M, N), torch.float32, cuda_device)
+    mats64 = rdft_matrices((M, N), torch.float64, cuda_device)
+    before = fused_dft_cuda.PRODUCTS_LAUNCHES
+    grad, xhat, scratch = fused_dft_cuda.dft_products(ghat, x, mats, return_scratch=True)
+    torch.cuda.synchronize()
+    assert fused_dft_cuda.PRODUCTS_LAUNCHES == before + 1
+    real = lambda t: torch.view_as_real(t) if t.is_complex() else t  # noqa: E731
+    ref32 = (irfft2_matmul(ghat, mats), rfft2_matmul(x, mats))
+    ref64 = (irfft2_matmul(ghat.to(torch.complex128), mats64), rfft2_matmul(x.double(), mats64))
+    for a, b, c in zip((grad, xhat), ref32, ref64):
+        a, b, c = real(a), real(b), real(c)
+        assert _rel_err(a, b) <= REL
+        assert _rel_err(a.double(), c) <= 2 * _rel_err(b.double(), c)
+    # the scratch in the layouts of the CPU emulation: the repack and the
+    # split exactly, the products' outputs within REL
+    g = fused_dft_cuda.dft_geometry(B, M, N)
+    _, _, emu = fused_dft_cuda.dft_products_emulated(
+        ghat, x, fused_dft_cuda.packed_factors(mats), return_scratch=True)
+    for name, K in (("gbuf", 2 * M), ("xbuf", N), ("ybuf", 2 * g["Nhp"]), ("fbuf", 2 * M)):
+        got, want = scratch[name][..., :K], emu[name][..., :K]
+        if name in ("gbuf", "xbuf"):
+            assert torch.equal(got, want), name
+        else:
+            assert _rel_err((got[0] + got[1])[None], (want[0] + want[1])[None]) <= REL, name
+    # E's products alone leave x̂ out
+    g_e, none = fused_dft_cuda.dft_products(ghat, x, mats, forward=False)
+    assert none is None and _rel_err(g_e, grad) <= REL
 
 
 @pytest.mark.parametrize("mode", probe_prox_variants.MODES)
