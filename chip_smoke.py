@@ -29,20 +29,30 @@ Phases:
         a ragged 1000×1528 (B=3): fresh prox at tol=0 (25 sweeps) and
         tol=1e-3, warm prox from non-zero duals (10 sweeps, duals
         returned) at tol=0 and tol=1e-3, fused step (25 sweeps) at σ²=1
-        and σ²≠1; the same bounds as phase 2, one chain exiting inside a
-        pass (the redo).  Times of the blocked kernel, its plain version
+        and σ²≠1; the same bounds as phase 2, a chain exiting inside a
+        pass (the redo) at 2048² and at 1000×1528.  Times of the blocked kernel, its plain version
         and the one-launch-per-sweep kernel of phase 2 (A2/A1/B) on the
         same inputs.
      b. `run_demo` at 2048² synthetic — Gaussian with w free and the
         σ²-log-scale option, Laplace, Moffat — and at 1024² synthetic with
-        the published Gaussian preset (w pinned), 2000 samples after 1500
+        the published Gaussian preset (w pinned), 1200 samples after 900
         warm-up, SALSA to 500: the blocked counters rose and kernel A's and
         B's did not, results finite and in their boxes, mse_db below y's.
      c. the 1024² pipeline (60 SAPG steps, 60 SALSA iterations) through the
         blocked kernels and through their plain versions on the card, same
         injected noise: θ_EB, σ²_EB and mse_db agree to 1e-3 relative.
      d. SAPG chain-iter/s at 1024² B=4 and 2048² B=1, 2 (blocked, kernel
-        B, plain); SALSA at 2048², 100 outer iterations (tol 0).
+        B, plain) and at 2048² B=1 with w pinned (blocked); SALSA at 2048²,
+        100 outer iterations (tol 0).
+     e. the pass kernel's design: ptxas's registers and spills of
+        blocked_pass (none allowed), its active blocks per SM (held to its
+        __launch_bounds__), the halo factor and pass split of 25 and 10
+        sweeps; its fast quotient and root against the IEEE operators
+        (every float of the root's range, 2^28 sampled quotients: bit-equal
+        required); the device time of one pass of 1 and of 7 sweeps at
+        2048² B=1 on the same tiles (the cost of a sweep and the fixed cost
+        of a pass: window load and store, reduce);
+        and the blocked prox beside A2 at 512² B=16 on the same inputs.
   6. the dense-DFT steps and the in-kernel noise (csrc/dft_kernels.cu,
      csrc/rng.cuh):
      a. kernel C at 512² (B=1, 16) and 481×353 (B=3), I's seeds form at
@@ -64,7 +74,7 @@ Phases:
         C call, and the C side's unit cost of a tensor-map encoding and of
         an attribute set.  The library's SASS holds the GEMM's HGMMA TF32
         instructions (cuobjdump).
-     b. `run_demo` (2000/1500 samples): 512² published Gaussian in dft mode
+     b. `run_demo` (1200/900 samples): 512² published Gaussian in dft mode
         with fuse_dft (D) and with fuse_irdft (E; B runs the warm-up),
         512² with in_kernel_rng (C), 256² B=2 in dft mode (the auto rule
         picks D), 2048² synthetic Gaussian w free with σ²-log-scale and
@@ -108,7 +118,9 @@ DFT_SRC = "semiblind_tv_tpu_torch/csrc/dft_kernels.cu"
 TILED, STREAMED = 1024, 2048
 KERNEL_SHAPES = [(1, TILED, TILED), (4, TILED, TILED), (1, STREAMED, STREAMED),
                  (2, STREAMED, STREAMED), (3, 1000, 1528)]
-DEMO_BUDGET = dict(samples=2000, warmup=1500, burn_in=1600)
+# the demos of phases 5 and 6: three fifths of phase 3's 2000/1500, to keep
+# the whole run within its time
+DEMO_BUDGET = dict(samples=1200, warmup=900, burn_in=960)
 J_SRC = "semiblind_tv_tpu_torch/csrc/prox_variants.cu"
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its float operations over the H100 SXM's non-tensor float32 peak
@@ -457,7 +469,8 @@ def phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag):
         check(kst.iters.tolist() == pst.iters.tolist() == [25] * B, "tol=0 must run 25 sweeps")
         check(it_k == it_p, f"{prox_row} sweep counts differ: {it_k} vs {it_p}")
         check(wit_k == wit_p, f"{prox_row} warm sweep counts differ: {wit_k} vs {wit_p}")
-        exits += [t for t in it_k if t < 25 and t % 8] + [t for t in wit_k if t < 10 and t % 8]
+        exits += [((M, N), t) for t in it_k if inside_pass(tb, t, 25)]
+        exits += [((M, N), t) for t in wit_k if inside_pass(tb, t, 10)]
 
         s2_t = torch.tensor(2.5, device=dev)
         grad_div = (grad / s2_t).contiguous()
@@ -488,8 +501,155 @@ def phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag):
             stats[prox_row]["work"] = prox_work(B, M, N, sum(it_k))
             stats[step_row]["work"] = step_work(B, M, N, sum(step_its.iters.tolist()))
     print(f"phase5 sweep counts of chains that stopped inside a pass: {exits}", flush=True)
-    check(exits, "no chain stopped inside a pass: the redo was not exercised")
+    for shape in ((STREAMED, STREAMED), (1000, 1528)):
+        check(any(s == shape for s, _ in exits),
+              f"no chain stopped inside a pass at {shape}: the redo was not exercised there")
     return stats
+
+
+def inside_pass(tb, t, n):
+    """Whether a chain that stopped after t of n sweeps stopped inside a
+    pass of tb.pass_split(n), so that its pass was redone."""
+    ends, e = set(), 0
+    for k in tb.pass_split(n):
+        e += k
+        ends.add(e)
+    return t < n and t not in ends
+
+
+def device_us(torch, fn, name, calls=5):
+    """Device µs a call of the kernels whose name holds `name`
+    (torch.profiler), after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages() if name in e.key) / calls
+
+
+def blocked_prox_raw(torch, lib, tb, g, lam, max_iter, geometry):
+    """The fresh blocked prox (tol 0) of g, (B, M, N) float32 on the card,
+    through sb_chambolle_prox_blocked on the tiles `geometry` = (TY, TX, K),
+    which the wrapper would take from blocked_geometry(max_iter)."""
+    B, M, N = g.shape
+    TYb, TXb, K = geometry
+    dev = g.device
+    px_buf = torch.empty((2, B, M, N), device=dev)
+    py_buf = torch.empty_like(px_buf)
+    state = torch.empty((B, tb.STATE_COLS), dtype=torch.int32, device=dev)
+    err = torch.empty((B,), device=dev)
+    partials = torch.empty((B * K * -(-M // TYb) * -(-N // TXb),), device=dev)
+    f = torch.empty_like(g)
+    check(lib.sb_chambolle_prox_blocked(
+        g.data_ptr(), lam.data_ptr(), None, None, px_buf.data_ptr(), py_buf.data_ptr(),
+        state.data_ptr(), err.data_ptr(), partials.data_ptr(), f.data_ptr(), None, None,
+        B, M, N, TYb, TXb, K, max_iter, 0.249, 0.0, torch.cuda.current_stream().cuda_stream) == 0,
+        "sb_chambolle_prox_blocked failed")
+    return f
+
+
+def phase5_design(torch, dev, tb, tv_cuda, build, wheel, tag):
+    """The pass kernel's registers, spills, occupancy, halo and split; its
+    fast operators against IEEE; the fixed share of a pass; the blocked prox
+    beside A2 at 512² B=16.  Returns the design numbers."""
+    import ctypes
+    import re
+
+    lib = build.load_library()
+    occ = (ctypes.c_int * 5)()
+    check(lib.sb_blocked_occupancy(occ) == 0, "sb_blocked_occupancy failed")
+    blocks, regs, local, threads, bound_blocks = list(occ)
+    ptxas = None
+    lines = build.BUILD_LOG.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and "blocked_pass" in ln:
+            text = " ".join(lines[i + 1:i + 4])
+            ptxas = (int(re.search(r"Used (\d+) registers", text).group(1)),
+                     int(re.search(r"(\d+) bytes spill stores", text).group(1)),
+                     int(re.search(r"(\d+) bytes spill loads", text).group(1)))
+    design = dict(threads=threads, registers=regs, local_bytes=local, blocks_per_sm=blocks,
+                  launch_bounds_blocks=bound_blocks, ptxas=ptxas)
+    for n in (25, 10):
+        geo = tb.blocked_geometry(n)
+        design[f"split_{n}"] = geo[3]
+        design[f"tile_{n}"] = geo[:3]
+        design[f"halo_factor_{n}"] = round(tb.halo_factor(geo), 4)
+    print(f"phase5 design blocked_pass: ptxas (registers, spill stores, spill loads) "
+          f"{ptxas if ptxas else 'not in this run (cached library)'}; runtime {regs} registers, "
+          f"{local} local bytes; "
+          f"{threads} threads, {blocks} active blocks per SM (__launch_bounds__ {bound_blocks}); "
+          f"25 sweeps: passes {design['split_25']}, tile (TY, TX, K) {design['tile_25']}, halo "
+          f"factor {design['halo_factor_25']}; 10 sweeps: passes {design['split_10']}, tile "
+          f"{design['tile_10']}, halo factor {design['halo_factor_10']}", flush=True)
+    check(blocks == bound_blocks, f"blocked_pass: {blocks} blocks per SM, the design counts on "
+          f"{bound_blocks}")
+    check(local == 0 and (ptxas is None or ptxas[1] == ptxas[2] == 0),
+          f"blocked_pass spills: ptxas {ptxas}, {local} local bytes")
+
+    # the fast quotient and root against the IEEE operators over their range
+    stream = torch.cuda.current_stream().cuda_stream
+    lo, hi = (127 - 94) << 23, (127 + 60) << 23
+    bad_root = 0
+    for start in range(lo, hi + 1, 1 << 27):
+        x = torch.arange(start, min(start + (1 << 27), hi + 1), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        q, r = torch.empty_like(x), torch.empty_like(x)
+        check(lib.sb_blocked_fast_ops(x.data_ptr(), torch.ones_like(x).data_ptr(), q.data_ptr(),
+                                      r.data_ptr(), x.numel(), stream) == 0, "fast_ops failed")
+        bad_root += int((r.view(torch.int32) != torch.sqrt(x).view(torch.int32)).sum())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    bad_div, n_div = 0, 0
+    for _ in range(4):
+        m = 1 << 26
+        a = torch.exp2(torch.rand(m, generator=gen, device=dev) * 154 - 94)
+        a = torch.where(torch.rand(m, generator=gen, device=dev) < 0.5, -a, a)
+        b = torch.exp2(torch.rand(m, generator=gen, device=dev) * 31)
+        q, r = torch.empty_like(a), torch.empty_like(a)
+        lib.sb_blocked_fast_ops(a.data_ptr(), b.data_ptr(), q.data_ptr(), r.data_ptr(), m, stream)
+        bad_div += int((q.view(torch.int32) != (a / b).view(torch.int32)).sum())
+        n_div += m
+    print(f"phase5 design fast operators: sqrt differs from IEEE on {bad_root} of "
+          f"{hi - lo + 1} floats in [2^-94, 2^60]; a/b on {bad_div} of {n_div} samples "
+          f"(|a| in [2^-94, 2^60], b in [1, 2^31])", flush=True)
+    check(bad_root == 0 and bad_div == 0, "the fast operators differ from IEEE in their range")
+
+    # the cost of a sweep and the fixed cost of a pass: device time of one
+    # pass of 1 and of 7 sweeps on the 25-sweep budget's tiles (halo 7),
+    # through the C entry, which takes the tiles from its caller
+    g = (wheel.repeat(4, 4)[None] + 5.0 * torch.randn((1, STREAMED, STREAMED), generator=gen,
+                                                         device=dev)).contiguous()
+    lam = torch.tensor(0.02, device=dev)
+    geo = tb.blocked_geometry(25)[:3]
+    t = {n: device_us(torch, lambda n=n: blocked_prox_raw(torch, lib, tb, g, lam, n, geo),
+                      "blocked_pass", calls=10) for n in (1, 7)}
+    sweep = (t[7] - t[1]) / 6
+    design.update(pass1_us=t[1], pass7_us=t[7], sweep_us=sweep,
+                  fixed_share=(t[1] - sweep) / t[7])
+    print(f"phase5 design one pass at {STREAMED}x{STREAMED} B=1, tile {geo}: blocked_pass device "
+          f"{t[1]:.1f} us (1 sweep), {t[7]:.1f} us (7 sweeps): {sweep:.2f} us a sweep, fixed "
+          f"{t[1] - sweep:.1f} us a pass, {design['fixed_share']:.3f} of a 7-sweep pass [{tag}]",
+          flush=True)
+
+    # the blocked prox beside A2 at 512² B=16, same inputs (phase 2's kind)
+    B = 16
+    g = ((wheel[None] + 5.0 * torch.randn((B, 512, 512), generator=gen, device=dev))
+         * torch.logspace(0, -10, B, device=dev)[:, None, None]).contiguous()
+    kb, sb = tb.chambolle_prox_blocked(g, lam, 25, return_state=False)
+    ka, sa = tv_cuda.chambolle_prox_cuda(g, lam, 25, return_state=False)
+    mb = cuda_ms(lambda: tb.chambolle_prox_blocked(g, lam, 25, return_state=False))
+    ma = cuda_ms(lambda: tv_cuda.chambolle_prox_cuda(g, lam, 25, return_state=False))
+    torch.cuda.synchronize()
+    design.update(a2_512_b16_ms=ma, blocked_512_b16_ms=mb)
+    print(f"phase5 design 512x512 B=16 fresh prox, tol 1e-3: blocked {mb * 1e3:.1f} us, A2 "
+          f"{ma * 1e3:.1f} us (ratio {mb / ma:.3f}); sweeps blocked {sb.iters.tolist()}, A2 "
+          f"{sa.iters.tolist()}; rel {rel(kb, ka):.3e} [{tag}]", flush=True)
+    check(sb.iters.tolist() == sa.iters.tolist(), "blocked and A2 sweep counts differ at 512²")
+    return design
 
 
 def step_rate(torch, problem, B, route, n_steps=200, warm=20):
@@ -636,6 +796,11 @@ def phase5_rates(torch, dev, build_problem, gaussian_preset, salsa_tv, tag):
             rp = step_rate(torch, prob, B, "plain", n_steps=15, warm=2)
             print(f"phase5 SAPG step {size}x{size} B={B} (w free): blocked {rb:.1f}, "
                   f"kernel B {r1:.1f}, plain {rp:.1f} chain-iter/s [{tag}]", flush=True)
+    pinned = build_problem(load_image("synthetic", size=STREAMED), gaussian_preset(), gen,
+                           device=dev)
+    rw = step_rate(torch, pinned, 1, None, n_steps=100, warm=10)
+    print(f"phase5 SAPG step {STREAMED}x{STREAMED} B=1 (w pinned): blocked {rw:.1f} chain-iter/s, "
+          f"{1e3 / rw:.3f} ms a step [{tag}]", flush=True)
     theta, sig2 = 0.05, float(prob.sigma_true) ** 2
     kw = dict(tau=theta * sig2, mu=theta * 0.1, blur=prob.blur, tol=0.0)
     salsa_tv(prob.y, prob.H_true, max_iter=10, **kw)
@@ -973,7 +1138,7 @@ def phase6_rates(torch, dev, build_problem, gaussian_preset, wheel_np, tag):
             gen.manual_seed(1)
             cfg = dataclasses.replace(free, sapg=dataclasses.replace(free.sapg, **variants[n]))
             probs[n] = build_problem(image, cfg, gen, device=dev)
-        steps = (200, 20) if size <= 512 else (60, 5)
+        steps = (100, 10) if size <= 512 else (60, 5)
         for B in chains:
             rates = {n: step_rate(torch, probs[n], B, None, *steps) for n in names}
             print(f"phase6 SAPG step {size}x{size} B={B} (w free): " +
@@ -1164,7 +1329,7 @@ def main() -> int:
     prob = build_problem(wheel_np, free, gen, device=dev)
     for B in (1, 16):
         rk = step_rate(torch, prob, B, None)
-        rp = step_rate(torch, prob, B, "plain")
+        rp = step_rate(torch, prob, B, "plain", n_steps=50, warm=5)
         print(f"phase4 SAPG step 512x512 B={B}: kernel {rk:.1f} chain-iter/s, plain "
               f"{rp:.1f} chain-iter/s [{tag}]", flush=True)
     theta, sig2 = 0.05, float(prob.sigma_true) ** 2
@@ -1181,6 +1346,7 @@ def main() -> int:
     # ---- phase 5 ------------------------------------------------------------
     t5 = time.perf_counter()
     big_stats = phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag)
+    phase5_design(torch, dev, tb, tv_cuda, _build, wheel, tag)
     big_launches = phase5_demos(torch, tv_cuda, fused_step_cuda, tb, run_demo,
                                 (gaussian_preset, laplace_preset, moffat_preset), tag)
     phase5_card_vs_plain(torch, dev, run_demo, gaussian_preset, tag)

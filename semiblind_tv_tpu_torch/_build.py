@@ -65,6 +65,8 @@ _SIGNATURES = {
         [_P] * 17 + [_I] * 7 + [_F, _F, _I, _P],
         _I,
     ),
+    "sb_blocked_occupancy": ([_P], _I),
+    "sb_blocked_fast_ops": ([_P] * 4 + [_L, _P], _I),
     "sb_myula_prox_tv_dft": (
         [_P] * 29 + [_L] + [_I] * 4 + [_F, _F, _I, _P],
         _I,

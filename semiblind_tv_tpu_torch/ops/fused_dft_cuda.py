@@ -26,10 +26,10 @@ the chains stacked into one product.  Its operands are laid out here:
 
 `tf32_round`, `split_tf32`, `gemm_tf32x3_emulated` and
 `dft_products_emulated` are the plain PyTorch emulation of that arithmetic
-and of the layouts, in the kernel's order but with round-to-nearest sums
-where the tensor cores round toward zero (the CPU tests hold it against
-float64); `dft_products` runs the products alone (the card's timing and
-tests; the emulation for a CPU tensor).
+and of the layouts, in the kernel's order and with the tensor cores'
+rounding (each k8 step's sum rounded toward zero), which the CPU tests hold
+against float64; `dft_products` runs the products alone (the card's timing
+and tests; the emulation for a CPU tensor).
 
 `myula_prox_tv_dft` and `myula_prox_tv_irdft` take their plain versions
 (`*_plain`: the JAX kernels' bodies on `torch.matmul`) for a CPU tensor and
@@ -223,29 +223,42 @@ def gemm_plan(B: int, M: int, N: int):
     return tuple(plan), ws
 
 
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32, rounded toward zero."""
+    y = x.to(torch.float32)
+    over = y.to(torch.float64).abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma_k8(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One k8 step of a tf32 wgmma: acc + a·bᵀ over (at most) 8 columns of
+    K, the sum taken exactly (float64: the tf32 products and their sum fit)
+    and rounded toward zero to float32, as the tensor cores do."""
+    return _round_toward_zero(acc.to(torch.float64) + a.to(torch.float64) @ b.to(torch.float64).T)
+
+
 def gemm_tf32x3_emulated(a: torch.Tensor, b: torch.Tensor, K: int,
                          splits: int = 1) -> torch.Tensor:
     """C = A·Bᵀ from the hi/lo planes a (2, rows, ≥K) and b (2, cols, ≥K) in
-    the kernel's order, float32 throughout (the tf32 products are exact in
-    float32): per k-block of BK, big = hi·hi and small = −(the running
-    compensation) + lo·hi + hi·lo, then big + small added to the split's sum
-    with Kahan compensation; the splits (whole k-blocks) added in order.
-
-    Not modelled: the tensor cores round each k8 step's sum toward zero,
-    and this adds within a k-block in round-to-nearest matmuls.  So the
-    CPU bounds on the emulation do not cover the one-sign drift that
-    rounding causes: a summation order that keeps within them here can miss
-    them on the card, and only the card tests hold the kernel's accuracy."""
+    the kernel's order and rounding: per k-block of BK, big = hi·hi in a
+    fresh accumulator and small = −(the running compensation) + lo·hi +
+    hi·lo (interleaved per k8 step), each k8 step of either rounded toward
+    zero (`_mma_k8`); then big + small added to the split's sum in float32
+    with Kahan compensation; the splits (whole k-blocks) added in order."""
     nk = -(-K // BK)
     total = None
     for z in range(splits):
         acc = small = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float32,
                                   device=a.device)
         for kb in range(nk * z // splits, nk * (z + 1) // splits):
-            s = slice(kb * BK, min(K, (kb + 1) * BK))
-            a_hi, a_lo, b_hi, b_lo = a[0, :, s], a[1, :, s], b[0, :, s].T, b[1, :, s].T
-            small = small + (a_lo @ b_hi + a_hi @ b_lo)
-            y = a_hi @ b_hi + small
+            steps = [slice(k, min(K, k + 8)) for k in range(kb * BK, min(K, (kb + 1) * BK), 8)]
+            big = torch.zeros_like(acc)
+            for s in steps:
+                big = _mma_k8(big, a[0, :, s], b[0, :, s])
+            for s in steps:
+                small = _mma_k8(small, a[1, :, s], b[0, :, s])
+                small = _mma_k8(small, a[0, :, s], b[1, :, s])
+            y = big + small
             t = acc + y
             small = y - (t - acc)
             acc = t

@@ -21,8 +21,9 @@ Above 512², `myula_prox_tv_blocked` replaces
 `fused_step_pallas.py::myula_prox_tv_tiled` (kernel G, 1024²) and
 `myula_prox_tv_streamed` (kernel I, ≥2048², which divides gradF by σ² in
 its prologue): the same prologue with σ², then the temporally-blocked prox
-of ops/tv_blocked_cuda.py on xn/(λθ) from zero duals, then the assembly of
-proxn.  G's form passes the divided gradient and σ² = 1 (x / 1 is exact).
+of ops/tv_blocked_cuda.py on xn/(λθ) from zero duals (its pass split and
+halo from `blocked_geometry(n_sweeps)`), then the assembly of proxn.  G's
+form passes the divided gradient and σ² = 1 (x / 1 is exact).
 
 `myula_prox_tv_rng` replaces `fused_step_pallas.py::myula_prox_tv_rng`
 (kernel C, `_kernel_rng`): kernel B whose prologue draws the noise of chain
@@ -49,7 +50,7 @@ import torch
 
 from semiblind_tv_tpu_torch.ops.rng import philox_normals
 from semiblind_tv_tpu_torch.ops.tv import chambolle_prox, tv_norm
-from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import check_geometry, blocked_geometry
+from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import STATE_COLS, blocked_geometry, check_geometry
 from semiblind_tv_tpu_torch.ops.tv_cuda import check_fields, check_status, scalar_on
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
@@ -266,7 +267,7 @@ def myula_prox_tv_blocked(
     else:
         check_seeds(seeds, x)
     B, M, N = x.shape
-    TYb, TXb, K = check_geometry(blocked_geometry(M, N), M, N)
+    TYb, TXb, K = check_geometry(blocked_geometry(n_sweeps), M, N, n_sweeps)
     lib = load_library()
     n_part = max(B * K * -(-M // TYb) * -(-N // TXb), B * lib.sb_num_tiles(M, N))
     with torch.cuda.device(x.device):
@@ -278,7 +279,7 @@ def myula_prox_tv_blocked(
         tv = torch.empty((B,), dtype=torch.float32, device=dev)
         px_buf = torch.empty((2, B, M, N), dtype=torch.float32, device=dev)
         py_buf = torch.empty_like(px_buf)
-        state = torch.empty((B, 6), dtype=torch.int32, device=dev)
+        state = torch.empty((B, STATE_COLS), dtype=torch.int32, device=dev)
         err = torch.empty((B,), dtype=torch.float32, device=dev)
         partials = torch.empty((n_part,), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream

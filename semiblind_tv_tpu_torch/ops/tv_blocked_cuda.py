@@ -6,17 +6,19 @@ F, 1024²: duals in whole-image VMEM scratch, row tiles) and
 `chambolle_prox_streamed` / `streamed_call` modes plain and warm (kernel H,
 ≥2048²: duals ping-pong in HBM, K sweeps per row window, a mid-pass redo
 for an exact early exit).  Both become one Hopper design: 2-D tiles with a
-halo of K on every side, K sweeps per window in shared memory, duals
-ping-pong in device memory, per-tile per-sweep residual partials, a
-per-chain reduce and a redo launch (see the source's header).  SALSA takes
-the warm form (duals in and out) and the SAPG's initial prox the fresh form.
+halo of K on every side, up to K sweeps per window with the duals in
+registers, duals ping-pong in device memory, per-tile per-sweep residual
+partials reduced by the last tile of each chain, and a redo launch (see the
+source's header).  SALSA takes the warm form (duals in and out) and the
+SAPG's initial prox the fresh form.
 
 `chambolle_prox_blocked` takes the plain version (`chambolle_prox_blocked_plain`,
 ops/tv.py::chambolle_prox) for a CPU tensor and the kernel for a CUDA
 tensor; anything else raises.  `chambolle_prox_blocked_emulated` replays
-the kernel's schedule in PyTorch — windows, halos, per-tile per-sweep
-partials summed in the kernel's order, the reduce and the redo — so the
-CPU tests hold that schedule against the whole-image prox.
+the kernel's schedule in PyTorch — the balanced pass split, windows, halos,
+per-tile per-sweep partials summed in the kernel's order, the folded reduce
+and the redo — so the CPU tests hold that schedule against the whole-image
+prox.
 """
 from __future__ import annotations
 
@@ -35,21 +37,21 @@ from semiblind_tv_tpu_torch.ops.tv_cuda import (
 __all__ = [
     "chambolle_prox_blocked", "chambolle_prox_blocked_plain",
     "chambolle_prox_blocked_emulated", "blocked_geometry", "blocked_rung",
-    "check_geometry", "LAUNCHES", "FRESH_LAUNCHES", "SWEEP_BLOCK",
+    "check_geometry", "pass_split", "halo_factor", "LAUNCHES", "FRESH_LAUNCHES",
+    "SWEEP_BLOCK",
 ]
 
-# Constants of csrc/tv_blocked.cu: threads of a pass block, window pixels
-# per thread, most sweeps per pass; and of csrc/common.cuh: threads of the
-# per-chain reduce block.
-BLOCK_THREADS = 640
-PIXELS_PER_THREAD = 10
+# Constants of csrc/tv_blocked.cu: warps across and down a pass block, rows
+# of a thread's strip, most sweeps per pass, int32 state words per chain;
+# and of csrc/common.cuh: threads of a per-chain reduce.
+WARPS_X = 4
+WARPS_Y = 4
+STRIP_ROWS = 16
 SWEEP_BLOCK = 8
+STATE_COLS = 7
 REDUCE_THREADS = 256
-WINDOW_PIXELS = BLOCK_THREADS * PIXELS_PER_THREAD
-# Shared memory of one H100 SM is 228 KB (227 KB for one block); a pass
-# block keeps four f32 windows (g/λ, px, py, u), and two blocks should fit.
-WINDOW_FIELDS = 4
-SMEM_PER_BLOCK = 113 * 1024
+WINDOW_COLS = 32 * WARPS_X             # 128
+WINDOW_ROWS = STRIP_ROWS * WARPS_Y     # 64
 
 LAUNCHES = 0         # blocked-prox launches (both forms) made by chambolle_prox_blocked
 FRESH_LAUNCHES = 0   # of which in the fresh (zero-dual) form
@@ -68,35 +70,50 @@ def blocked_rung(shape) -> Optional[str]:
     return "tiled" if M * N <= 1024 * 1024 else "streamed"
 
 
-def blocked_geometry(M: int, N: int, itemsize: int = 4) -> Tuple[int, int, int]:
-    """(TY, TX, K) of the blocked kernel: the Hopper counterpart of
-    tv_pallas.streamed_tile_rows, sized to shared memory instead of VMEM.
+def pass_split(max_iter: int) -> Tuple[int, ...]:
+    """The sweeps of each pass: ⌈max_iter/8⌉ passes of near-equal size, the
+    longer ones first (25 → 7, 6, 6, 6; 10 → 5, 5; 0 → none), as the host
+    loop of csrc/tv_blocked.cu::prox_blocked issues them."""
+    n = -(-max_iter // SWEEP_BLOCK)
+    return tuple(max_iter // n + (i < max_iter % n) for i in range(n))
 
-    K = 8 sweeps per pass.  The central tile is the largest square T (a
-    multiple of 16) whose window (T + 2K)² fits the block's pixel capacity
-    (640 threads × 10 pixels = 6400) and whose four f32 window fields (g/λ,
-    px, py, u) fit half of an SM's shared memory, so that two blocks share
-    an SM: T = 64, an 80 × 80 window, 4 × 25.6 KB = 102.4 KB.  Its cost:
-    (80/64)² = 1.56×
-    the stencil work of the central pixels, and device-memory traffic of
-    about (3 · 1.56 + 2) / 8 ≈ 0.8 fields a sweep instead of about five.
+
+def blocked_geometry(max_iter: int) -> Tuple[int, int, int, Tuple[int, ...]]:
+    """(TY, TX, K, split) of the blocked kernel for a budget of max_iter
+    sweeps: the Hopper counterpart of tv_pallas.streamed_tile_rows, sized to
+    the pass block's 64 × 128 window (4 × 4 warps, 16-row strips, the duals
+    in registers: 128 registers a thread and no spills, so one 512-thread
+    block an SM, set by registers, not by shared memory; chip_smoke.py
+    prints both) instead of to VMEM.
+
+    The halo K is the longest pass of `pass_split(max_iter)` and the
+    central tile the window less K on every side: 50 × 114 at K = 7 (25
+    sweeps), 54 × 118 at K = 5 (10 sweeps).  Its cost: `halo_factor`,
+    1.44× and 1.29× the stencil work of the central pixels, and
+    device-memory traffic of about (3 · 1.44 + 2)/6.25 ≈ 1 field a sweep.
     Windows clamp to the image, so any M, N ≥ 2 works; an image smaller
     than a window is one window."""
-    K = SWEEP_BLOCK
-    for t in (64, 48, 32, 16):
-        w = t + 2 * K
-        if w * w <= WINDOW_PIXELS and WINDOW_FIELDS * w * w * itemsize <= SMEM_PER_BLOCK:
-            return t, t, K
-    raise ValueError(f"no blocked tile fits for M={M}, N={N}")
+    split = pass_split(max_iter)
+    K = max(split, default=1)
+    return WINDOW_ROWS - 2 * K, WINDOW_COLS - 2 * K, K, split
 
 
-def check_geometry(geometry, M, N):
-    """Raise unless (TY, TX, K) fits the kernel (K ≤ 8, window ≤ 6400
-    pixels); returns it."""
-    TYb, TXb, K = geometry
+def halo_factor(geometry) -> float:
+    """Window pixels swept per central pixel of an unclamped window."""
+    TYb, TXb, K = geometry[:3]
+    return (TYb + 2 * K) * (TXb + 2 * K) / (TYb * TXb)
+
+
+def check_geometry(geometry, M, N, max_iter):
+    """Raise unless (TY, TX, K) fits the kernel: its window, clamped to the
+    image, at most 64 × 128, and 1 ≤ K ≤ 8 at least the longest pass of
+    max_iter's split; returns (TY, TX, K)."""
+    TYb, TXb, K = geometry[:3]
     wh, ww = min(TYb + 2 * K, M), min(TXb + 2 * K, N)
-    if not (1 <= K <= SWEEP_BLOCK and TYb >= 1 and TXb >= 1 and wh * ww <= WINDOW_PIXELS):
-        raise ValueError(f"geometry {geometry} does not fit the kernel (window {wh}x{ww})")
+    if not (max(pass_split(max_iter), default=1) <= K <= SWEEP_BLOCK and TYb >= 1
+            and TXb >= 1 and wh <= WINDOW_ROWS and ww <= WINDOW_COLS):
+        raise ValueError(f"geometry {tuple(geometry)} does not fit the kernel for "
+                         f"{max_iter} sweeps (window {wh}x{ww})")
     return TYb, TXb, K
 
 
@@ -135,7 +152,7 @@ def chambolle_prox_blocked(
         fields += list(duals)
     check_fields(names, fields, g)
     B, M, N = g.shape
-    TYb, TXb, K = check_geometry(blocked_geometry(M, N), M, N)
+    TYb, TXb, K = check_geometry(blocked_geometry(max_iter), M, N, max_iter)
     lib = load_library()
     ntiles = -(-M // TYb) * -(-N // TXb)
     with torch.cuda.device(g.device):
@@ -143,7 +160,7 @@ def chambolle_prox_blocked(
         dev = g.device
         px_buf = torch.empty((2, B, M, N), dtype=torch.float32, device=dev)
         py_buf = torch.empty_like(px_buf)
-        state = torch.empty((B, 6), dtype=torch.int32, device=dev)
+        state = torch.empty((B, STATE_COLS), dtype=torch.int32, device=dev)
         err = torch.empty((B,), dtype=torch.float32, device=dev)
         partials = torch.empty((B * K * ntiles,), dtype=torch.float32, device=dev)
         f = torch.empty_like(g)
@@ -189,20 +206,21 @@ def _tree(v: torch.Tensor) -> torch.Tensor:
 
 
 def _block_sum(r2: torch.Tensor) -> torch.Tensor:
-    """blocked_pass's per-tile sum of (T, n) window values (zero outside
-    the central tile): thread t sums pixels t, t + 640, ... in order, a
-    shuffle tree sums each warp, then the warps are added in order."""
-    T, n = r2.shape
-    rows = -(-n // BLOCK_THREADS)
-    pad = torch.zeros((T, rows * BLOCK_THREADS), dtype=r2.dtype)
-    pad[:, :n] = r2
-    pad = pad.view(T, rows, BLOCK_THREADS)
-    acc = torch.zeros((T, BLOCK_THREADS), dtype=r2.dtype)
-    for i in range(rows):
-        acc = acc + pad[:, i]
-    warps = _tree(acc.view(T, BLOCK_THREADS // 32, 32))
+    """blocked_pass's per-tile sum of (T, wh, ww) window values (zero
+    outside the central tile): the window padded to the pass block's 64 ×
+    128, thread (warp w, lane l) sums the 16 rows of its strip of column
+    32·(w mod 4) + l in order, a shuffle tree sums each warp, then the warps
+    are added in order w = 0, 1, …"""
+    T, wh, ww = r2.shape
+    pad = torch.zeros((T, WINDOW_ROWS, WINDOW_COLS), dtype=r2.dtype)
+    pad[:, :wh, :ww] = r2
+    strips = pad.view(T, WARPS_Y, STRIP_ROWS, WARPS_X, 32)
+    acc = strips[:, :, 0]
+    for i in range(1, STRIP_ROWS):
+        acc = acc + strips[:, :, i]
+    warps = _tree(acc).reshape(T, WARPS_Y * WARPS_X)   # warp w = WARPS_X·wy + wx
     s = warps[:, 0]
-    for w in range(1, BLOCK_THREADS // 32):
+    for w in range(1, WARPS_Y * WARPS_X):
         s = s + warps[:, w]
     return s
 
@@ -256,13 +274,14 @@ def chambolle_prox_blocked_emulated(
     geometry: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, ChambolleState]:
     """The blocked kernel's launch schedule in PyTorch, on the CPU:
-    blocked_init, then per pass of up to K sweeps blocked_pass (every tile
-    of every active chain: clamped window, K local sweeps, central tile to
-    the other buffer, per-sweep partials in the kernel's summation order),
-    blocked_reduce (first sweep j* with sqrt(sum) ≤ tol, state update) and
-    the redo pass from the intact source with limit j*, then assembly.
-    geometry = (TY, TX, K), by default blocked_geometry's.  Same signature
-    and results as chambolle_prox_blocked otherwise."""
+    blocked_init, then for each pass of pass_split(max_iter) blocked_pass
+    (every tile of every active chain: clamped window, the pass's sweeps,
+    central tile to the other buffer, per-sweep partials in the kernel's
+    summation order; then the chain's last tile's reduce: chain_sum's order,
+    the first sweep j* with sqrt(sum) ≤ tol, the state update) and the redo
+    pass from the intact source with limit j*, then assembly.  geometry =
+    (TY, TX, K), by default blocked_geometry's.  Same signature and results
+    as chambolle_prox_blocked otherwise."""
     squeeze = g.ndim == 2
     if squeeze:
         g = g[None]
@@ -271,7 +290,7 @@ def chambolle_prox_blocked_emulated(
     if not return_state and duals is not None:
         raise ValueError("return_state=False requires duals=None (fresh duals)")
     B, M, N = g.shape
-    TYb, TXb, K = check_geometry(geometry or blocked_geometry(M, N), M, N)
+    TYb, TXb, K = check_geometry(geometry or blocked_geometry(max_iter), M, N, max_iter)
     wh, ww, tiles = _windows(M, N, TYb, TXb, K)
     T = len(tiles)
     rows = torch.tensor([[h0 + r for r in range(wh)] for h0, *_ in tiles])
@@ -316,22 +335,21 @@ def chambolle_prox_blocked_emulated(
             ry = -upy + tmp * py
             r2 = torch.where(central, rx * rx + ry * ry, torch.zeros_like(rx))
             if record:
-                partials[b, s] = _block_sum(r2.reshape(T, wh * ww))
+                partials[b, s] = _block_sum(r2)
             denom = 1.0 + tau * tmp
             px, py = (px + tau * upx) / denom, (py + tau * upy) / denom
         for t, (h0, w0, r0, r1, c0, c1) in enumerate(tiles):
             buf[s_to, 0, b, h0 + r0:h0 + r1, w0 + c0:w0 + c1] = px[t, r0:r1, c0:c1]
             buf[s_to, 1, b, h0 + r0:h0 + r1, w0 + c0:w0 + c1] = py[t, r0:r1, c0:c1]
 
-    for s0 in range(0, max_iter, K):
-        limit = min(K, max_iter - s0)
+    for limit in pass_split(max_iter):
         dst = {}
         for b in range(B):                    # blocked_pass
             if active[b]:
                 dst[b] = 1 if src[b] == 0 else 0
                 run_pass(b, src[b], dst[b], limit, True)
         redo = {}
-        for b in dst:                         # blocked_reduce
+        for b in dst:                         # the last tile's reduce
             es = [torch.sqrt(_chain_sum(partials[b, j])) for j in range(limit)]
             jstar = next((j + 1 for j, e in enumerate(es) if not bool(e > tol)), 0)
             jstop = jstar if jstar else limit

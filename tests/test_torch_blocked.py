@@ -13,12 +13,17 @@ rule at a window edge inside the image; see
 test_jax_streamed_window_edge_fault_is_not_ported), so the tol=0
 comparisons with it use fields large enough that its error is below
 rounding, as the JAX package's own interpret tests do.  The kernel's
-launch schedule is replayed by
+launch schedule (the balanced pass split, clamped windows, per-tile sums in
+the pass block's order, the folded reduce and the redo) is replayed by
 chambolle_prox_blocked_emulated and held against the whole-image plain
-prox: bit-equal at tol=0, and equal per-chain sweep counts at tol > 0 for
-chains that stop at sweep 1, inside a pass (the redo), at K and at K + 1.
-The kernels themselves run on the card in tests/test_torch_on_card.py.
+prox: bit-equal at tol=0, and equal per-chain sweep counts (and fields) at
+tol=1e-3, across pass splits, window widths that are not a multiple of 32,
+images smaller than a window, ragged shapes, and chains that stop on every
+sweep of a pass.  The kernels themselves run on the card in
+tests/test_torch_on_card.py.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +37,17 @@ from semiblind_tv_tpu_torch.ops import tv_blocked_cuda as tb
 REL = 1e-12
 SIZE = 64
 K = tb.SWEEP_BLOCK
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The emulation runs many small elementwise operations, which several
+    test workers sharing the cores slow down by orders of magnitude when
+    each op is split across threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rel(a, b):
@@ -250,6 +266,93 @@ def test_emulation_with_no_sweeps_returns_the_start():
         assert st.iters.tolist() == [0, 0] and torch.isinf(st.err).all()
 
 
+def _hold_to_plain(g, lam, max_iter, geometry=None, duals=None):
+    """The emulated schedule against the plain prox: bit-equal at tol=0;
+    at tol=1e-3 the same sweep counts and fields.  Returns the counts."""
+    for tol in (0.0, 1e-3):
+        f, st = tb.chambolle_prox_blocked_emulated(g, lam, max_iter, tol=tol, duals=duals,
+                                                   geometry=geometry)
+        pf, pst = tb.chambolle_prox_blocked_plain(g, lam, max_iter, tol=tol, duals=duals)
+        assert st.iters.tolist() == pst.iters.tolist()
+        assert torch.equal(f, pf) and torch.equal(st.px, pst.px) and torch.equal(st.py, pst.py)
+    return st.iters.tolist()
+
+
+def _graded(B, shape, seed):
+    """Chains of one field at decreasing scales: at λ = 0.5 and tol=1e-3
+    the small ones stop early, the large ones run the whole budget."""
+    g = _images(1, shape, seed=seed, scales=(1.0,))[0]
+    return torch.from_numpy(np.stack([g * 10.0 ** (-4.9 + 1.2 * b) for b in range(B)]))
+
+
+@pytest.mark.parametrize("max_iter", [0, 1, 7, 8, 9, 10, 25])
+def test_emulation_follows_every_pass_split(max_iter):
+    """blocked_geometry's halo and split for max_iter at a ragged shape of
+    2 × 2 windows."""
+    its = _hold_to_plain(_graded(3, (70, 150), 11), 0.5, max_iter)
+    assert max(its) == max_iter
+
+
+@pytest.mark.parametrize("geometry", [(20, 30, 8), (10, 51, 7), (34, 99, 7), (9, 17, 8)])
+def test_emulation_at_window_widths_off_the_warp(geometry):
+    """Windows 46, 65, 113 and 33 columns wide: the pass block's columns
+    past the window are padding."""
+    _hold_to_plain(_graded(3, (64, 96), 12), 0.5, 25, geometry=geometry)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7), (1, 2, 2), (2, 63, 3), (1, 64, 128), (2, 40, 100)])
+@pytest.mark.parametrize("warm", [False, True])
+def test_emulation_on_images_smaller_than_a_window(shape, warm):
+    g = _graded(shape[0], shape[1:], 13) * 1e3
+    duals = tuple(_t(*_duals(shape, 14))) if warm else None
+    _hold_to_plain(g, 0.5, 10 if warm else 25, duals=duals)
+
+
+@pytest.mark.parametrize("shape", [(2, 125, 191), (3, 100, 153)])
+def test_emulation_on_ragged_shapes(shape):
+    """1000 × 1528 at an eighth and a tenth: windows clamped at the right
+    and bottom edges, tiles cut short by the image."""
+    its = _hold_to_plain(_graded(shape[0], shape[1:], 15), 0.5, 25)
+    assert len(set(its)) > 1
+
+
+@functools.lru_cache(maxsize=None)
+def _stop_scales(lam=0.5, shape=(48, 80), seed=16):
+    """(base field, {t: a scale s at which the plain prox of s·base stops
+    after t sweeps at tol=1e-3}), t = 1..25: a coarse grid of log-scales
+    brackets the stops, a fine one resolves them, and each s is the middle
+    of its run (at least 3 grid points), so no residual lies on the edge of
+    tol."""
+    base = np.random.default_rng(seed).standard_normal(shape)
+
+    def iters(logs):
+        g = torch.from_numpy(base[None] * 10.0 ** logs[:, None, None])
+        return tb.chambolle_prox_blocked_plain(g, lam, 25)[1].iters.numpy()
+
+    coarse = np.linspace(-8.0, 0.5, 86)
+    its = iters(coarse)
+    fine = np.linspace(coarse[np.nonzero(its == 1)[0].max() - 1],
+                       coarse[np.nonzero(its == 25)[0].min()], 480)
+    its = iters(fine)
+    scales = {}
+    for t in range(1, 26):
+        idx = np.nonzero(its == t)[0]
+        assert idx.size >= 3 and idx[-1] - idx[0] == idx.size - 1, (t, its)
+        scales[t] = 10.0 ** fine[idx[idx.size // 2]]
+    return base, scales
+
+
+@pytest.mark.parametrize("first,last", [(1, 7), (8, 13), (20, 25)])
+def test_emulation_with_a_chain_stopping_on_every_sweep_of_a_pass(first, last):
+    """25 sweeps run as 7 + 6 + 6 + 6: one chain stops on each sweep of the
+    first, second or last pass (the redo from the pass's source for every
+    j* < limit, none at the pass's end), on 3 × 4 windows."""
+    base, scales = _stop_scales()
+    targets = list(range(first, last + 1))
+    g = torch.from_numpy(np.stack([base * scales[t] for t in targets]))
+    assert _hold_to_plain(g, 0.5, 25, geometry=(16, 24, 7)) == targets
+
+
 # ---------------------------------------------------------------------------
 # Wrappers, geometry, rungs
 # ---------------------------------------------------------------------------
@@ -279,17 +382,38 @@ def test_wrappers_raise_on_other_devices():
 
 
 def test_geometry_fits_shared_memory_and_the_kernel():
-    TYb, TXb, k = tb.blocked_geometry(2048, 2048)
-    assert (TYb, TXb, k) == (64, 64, 8)
-    w = (TYb + 2 * k) * (TXb + 2 * k)
-    assert w <= tb.WINDOW_PIXELS and tb.WINDOW_FIELDS * w * 4 <= tb.SMEM_PER_BLOCK
-    assert 2 * (tb.WINDOW_FIELDS * w * 4) <= 228 * 1024   # two blocks share an SM
-    assert tb.check_geometry((64, 64, 8), 1000, 1528) == (64, 64, 8)
-    assert tb.check_geometry((64, 64, 8), 5, 7) == (64, 64, 8)   # one small window
-    with pytest.raises(ValueError):
-        tb.check_geometry((96, 96, 8), 2048, 2048)   # window above 6400 pixels
-    with pytest.raises(ValueError):
-        tb.check_geometry((16, 16, 9), 64, 64)       # K above the kernel's 8
+    """The pass block's 64 × 128 window (4 × 4 warps, 16-row strips); the
+    halo is the longest pass of the split and the central tile the rest."""
+    assert (tb.WINDOW_ROWS, tb.WINDOW_COLS) == (64, 128)
+    assert tb.blocked_geometry(25) == (50, 114, 7, (7, 6, 6, 6))
+    assert tb.blocked_geometry(10) == (54, 118, 5, (5, 5))
+    assert tb.blocked_geometry(0) == (62, 126, 1, ())
+    assert abs(tb.halo_factor(tb.blocked_geometry(25)) - 64 * 128 / (50 * 114)) < 1e-12
+    assert tb.check_geometry((50, 114, 7), 1000, 1528, 25) == (50, 114, 7)
+    assert tb.check_geometry((50, 114, 7), 5, 7, 25) == (50, 114, 7)      # one small window
+    assert tb.check_geometry((60, 120, 7), 40, 56, 25) == (60, 120, 7)    # clamped to the image
+    for geometry, max_iter in (((51, 114, 7), 25),    # a 65-row window
+                               ((50, 115, 7), 25),    # a 129-column window
+                               ((16, 16, 9), 9),      # K above the kernel's 8
+                               ((16, 16, 6), 25)):    # a halo short of the 7-sweep pass
+        with pytest.raises(ValueError):
+            tb.check_geometry(geometry, 2048, 2048, max_iter)
+
+
+@pytest.mark.parametrize("max_iter,split", [
+    (0, ()), (1, (1,)), (7, (7,)), (8, (8,)), (9, (5, 4)), (10, (5, 5)), (17, (6, 6, 5)),
+    (25, (7, 6, 6, 6)), (100, (8,) * 9 + (7,) * 4),
+])
+def test_pass_split(max_iter, split):
+    assert tb.pass_split(max_iter) == split
+
+
+def test_pass_split_is_balanced():
+    for n in range(0, 130):
+        split = tb.pass_split(n)
+        assert sum(split) == n and len(split) == -(-n // tb.SWEEP_BLOCK)
+        assert all(1 <= s <= tb.SWEEP_BLOCK for s in split)
+        assert list(split) == sorted(split, reverse=True) and (not split or split[0] - split[-1] <= 1)
 
 
 @pytest.mark.parametrize("shape,rung", [

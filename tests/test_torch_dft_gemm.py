@@ -13,10 +13,11 @@ on the CPU, where the kernel itself cannot run.
   products in the kernel's order) at 64², 256² and a ragged 48×37 deviates
   from the JAX package's float64 matmul transforms at most 2× as much as
   `torch.matmul` in float32; the GEMM emulation alone, split along K and
-  on sums of one sign.  The emulation sums in round-to-nearest where the
-  tensor cores round each step toward zero, so these bounds do not cover
-  that drift: the card tests (`tests/test_torch_on_card.py`) hold the
-  kernel's own accuracy.
+  on sums of one sign.  The emulation rounds each k8 step's sum toward zero
+  as the tensor cores do, so the bounds see the one-sign drift that rounding
+  causes: on a DC column of one sign a one-accumulator 3-pass GEMM misses
+  the bound here, as it did on the card, and the shipped per-k-block hi·hi
+  form keeps it.
 * `gemm_plan`: large grids take 128×128 tiles, small ones split-K.
 """
 import jax.numpy as jnp
@@ -30,6 +31,17 @@ from semiblind_tv_tpu_torch.ops.fourier import irfft2_matmul, rdft_matrices, rff
 
 SHAPES = [(64, 64), (256, 256), (48, 37)]
 EPS22 = 2.0 ** -22
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The emulation rounds every k8 step of every product on its own: many
+    small operations, which several test workers sharing the cores slow by
+    orders of magnitude when each is split across threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rna_model(x: np.ndarray) -> np.ndarray:
@@ -222,3 +234,36 @@ def test_gemm_plan_fills_the_card(B, M, N):
         assert plan[0::2] == (1, 1, 1, 1)
     if (B, M, N) == (1, 256, 256):    # one chain: every product split along K
         assert all(s > 1 for s in plan[1::2])
+
+
+def _one_accumulator_3pass(a, b, K):
+    """The design the card refused: lo·hi, hi·lo and hi·hi of every k8 step
+    summed into one accumulator across all of K, each step rounded toward
+    zero as the tensor cores do."""
+    acc = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float32)
+    for k in range(0, K, 8):
+        s = slice(k, min(K, k + 8))
+        acc = fd._mma_k8(acc, a[1, :, s], b[0, :, s])
+        acc = fd._mma_k8(acc, a[0, :, s], b[1, :, s])
+        acc = fd._mma_k8(acc, a[0, :, s], b[0, :, s])
+    return acc
+
+
+@pytest.mark.parametrize("K", [512, 1024])   # 2M of D's column products at 256², 512²
+def test_one_sign_dc_column_fails_one_accumulator_and_keeps_the_shipped_form(K):
+    """x̂'s DC term of a positive image: rows of [0, 255) values against a
+    factor row of ones (cos 0), beside rows of cosines.  Rounding each k8
+    step toward zero makes a single running sum drift one way, past twice
+    torch.matmul's deviation from float64; the shipped form sums each
+    k-block's hi·hi in a fresh accumulator (exact here) and stays within."""
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy((rng.random((48, K)) * 255.0).astype(np.float32))
+    k = np.arange(K)
+    b = torch.from_numpy(np.stack([np.cos(2 * np.pi * f * k / K) for f in range(24)])
+                         .astype(np.float32))
+    assert bool((b[0] == 1.0).all())
+    pa, pb = fd._planes(a, K), fd._planes(b, K)
+    want = a.double() @ b.double().T
+    bound = 2.0 * _rel(a @ b.T, want)
+    assert _rel(_one_accumulator_3pass(pa, pb, K), want) > bound
+    assert _rel(fd.gemm_tf32x3_emulated(pa, pb, K), want) <= bound
