@@ -9,12 +9,22 @@ Phases:
      package's Precision.HIGHEST).  Exits non-zero without a CUDA card.
   1. builds the kernel library from every source under
      semiblind_tv_tpu_torch/csrc/ (one nvcc per source, in parallel).
-  2. kernel against plain PyTorch version, same inputs, at 512² (B=1, 16)
-     and a ragged shape (B=3, 480×352): kernel A fresh form at tol=0 (25
-     sweeps) and tol=1e-3, kernel A warm form from non-zero duals (10
-     sweeps, duals returned), kernel B (25 sweeps).  Bounds: max|Δ| ≤ 1e-5
-     of the largest magnitude at tol=0, equal sweep counts at tol=1e-3.
-     Times: median of 20 CUDA-event timings after warm-up.
+  2. kernel against plain PyTorch version, same inputs, at 512² (B=1, 16),
+     a ragged shape (B=3, 480×352) and 256² B=40 (five groups of chains):
+     kernel A fresh form at tol=0 (25 sweeps) and tol=1e-3, kernel A warm
+     form from non-zero duals (10 sweeps, duals returned), kernel B (25
+     sweeps).  Bounds: bit-equal fields at tol=0 (max|Δ| = 0), B's TV and
+     A2's last residual within REL_BOUND (another order of summation),
+     equal sweep counts at tol=1e-3 (chains stopping at sweep 1 and 25
+     among them), barrier error code 0; each shape's resident geometry.
+     Times: median of 20 CUDA-event timings after warm-up, and the device
+     time (torch.profiler).  Then the resident kernel's design: ptxas's
+     registers and spills (none allowed), blocks an SM held to its
+     __launch_bounds__, its exact root against sqrtf on every non-negative
+     float and its exact quotient against '/' on 2^25·3 pairs and every
+     pair of special values, the barrier's cost a sweep (A2's device time at 512² B=1 for 1
+     and 25 sweeps), and a profiler listing of one call of A1, A2, B and C
+     (one launch each).
   3. the port's main path, `run_demo` with the published Gaussian preset
      (w pinned), wheel.png 512², one chain, 2000 samples after 1500 warm-up
      steps, SALSA to 500 outer iterations; asserts both kernels' launch
@@ -29,10 +39,13 @@ Phases:
         a ragged 1000×1528 (B=3): fresh prox at tol=0 (25 sweeps) and
         tol=1e-3, warm prox from non-zero duals (10 sweeps, duals
         returned) at tol=0 and tol=1e-3, fused step (25 sweeps) at σ²=1
-        and σ²≠1; the same bounds as phase 2, a chain exiting inside a
-        pass (the redo) at 2048² and at 1000×1528.  Times of the blocked kernel, its plain version
-        and the one-launch-per-sweep kernel of phase 2 (A2/A1/B) on the
-        same inputs.
+        and σ²≠1; max|Δ| ≤ 1e-5 of the largest magnitude at tol=0, equal
+        sweep counts at tol=1e-3, a chain exiting inside a pass (the redo)
+        at 2048² and at 1000×1528.  The resident kernel (A2, A1, B; the
+        walk form at these sizes) on the same inputs: bit-equal fields at
+        tol=0, equal sweep counts at tol=1e-3, barrier error code 0.  Times
+        of the blocked kernel, its plain version and the resident kernel on
+        the same inputs.
      b. `run_demo` at 2048² synthetic — Gaussian with w free and the
         σ²-log-scale option, Laplace, Moffat — and at 1024² synthetic with
         the published Gaussian preset (w pinned), 1200 samples after 900
@@ -294,11 +307,12 @@ def max_abs(pairs):
 
 
 def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
-    """Kernel vs plain at the main path's shapes; returns per-kernel stats."""
+    """Kernel vs plain at the main path's shapes, and a multi-group batch;
+    returns per-kernel stats."""
     g0 = torch.Generator(device=dev)
     g0.manual_seed(0)
     stats = {k: dict(max_abs_err=0.0, ms=None, plain_ms=None) for k in ("A1", "A2", "B")}
-    shapes = [(1, 512, 512), (16, 512, 512), (3, 480, 352)]
+    shapes = [(1, 512, 512), (16, 512, 512), (3, 480, 352), (40, 256, 256)]
     for B, M, N in shapes:
         img = wheel[:M, :N]
         noise = lambda s=1.0: torch.randn((B, M, N), generator=g0, device=dev) * s
@@ -310,21 +324,22 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
         lam_sapg = torch.tensor(0.02, device=dev)     # λθ at the SAPG operating point
         lam_salsa = torch.tensor(100.0, device=dev)   # SALSA's τ/µ = 10 σ²
         px0, py0 = (noise(0.1) * scales).contiguous(), (noise(0.1) * scales).contiguous()
+        geo = tv_cuda.resident_geometry(B, M, N, tv_cuda.resident_capacity(dev))
 
         # A2: fresh form
         kf, kst = tv_cuda.chambolle_prox_cuda(g, lam_sapg, 25, tol=0.0, return_state=False)
         pf, pst = tv_cuda.chambolle_prox_plain(g, lam_sapg, 25, tol=0.0, return_state=False)
-        e_a2 = rel(kf, pf)
-        stats["A2"]["max_abs_err"] = max(stats["A2"]["max_abs_err"], max_abs([(kf, pf)]))
+        e_a2 = max_abs([(kf, pf)])
+        stats["A2"]["max_abs_err"] = max(stats["A2"]["max_abs_err"], e_a2)
         kf1, kst1 = tv_cuda.chambolle_prox_cuda(g, lam_sapg, 25, tol=1e-3, return_state=False)
         pf1, pst1 = tv_cuda.chambolle_prox_plain(g, lam_sapg, 25, tol=1e-3, return_state=False)
         it_k, it_p = kst1.iters.tolist(), pst1.iters.tolist()
+        e_res = rel(kst1.err, pst1.err)
         # A1: warm form
         wf, wst = tv_cuda.chambolle_prox_cuda(g, lam_salsa, 10, tol=0.0, duals=(px0, py0))
         qf, qst = tv_cuda.chambolle_prox_plain(g, lam_salsa, 10, tol=0.0, duals=(px0, py0))
-        e_a1 = max(rel(wf, qf), rel(wst.px, qst.px), rel(wst.py, qst.py))
-        stats["A1"]["max_abs_err"] = max(
-            stats["A1"]["max_abs_err"], max_abs([(wf, qf), (wst.px, qst.px), (wst.py, qst.py)]))
+        e_a1 = max_abs([(wf, qf), (wst.px, qst.px), (wst.py, qst.py)])
+        stats["A1"]["max_abs_err"] = max(stats["A1"]["max_abs_err"], e_a1)
         wf1, wst1 = tv_cuda.chambolle_prox_cuda(g, lam_salsa, 10, duals=(px0, py0))
         qf1, qst1 = tv_cuda.chambolle_prox_plain(g, lam_salsa, 10, duals=(px0, py0))
         wit_k, wit_p = wst1.iters.tolist(), qst1.iters.tolist()
@@ -336,19 +351,25 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
         sc = (torch.tensor(1.9, device=dev), torch.tensor(2.0, device=dev), lam_sapg)
         kb = fused_step_cuda.myula_prox_tv(x, prox, grad, z, *sc, 25, tol=0.0)
         pb = fused_step_cuda.myula_prox_tv_plain(x, prox, grad, z, *sc, 25, tol=0.0)
-        e_b = [rel(a, b) for a, b in zip(kb, pb)]
-        stats["B"]["max_abs_err"] = max(stats["B"]["max_abs_err"], max_abs(zip(kb[:2], pb[:2])))
-        torch.cuda.synchronize()
-        print(f"phase2 B={B} {M}x{N}: A2 tol=0 rel {e_a2:.3e}; A2 tol=1e-3 iters kernel {it_k} "
-              f"plain {it_p}; A1 warm tol=0 rel {e_a1:.3e}; A1 tol=1e-3 iters kernel {wit_k} "
-              f"plain {wit_p}; B rel xn {e_b[0]:.3e} proxn {e_b[1]:.3e} tv {e_b[2]:.3e} "
-              f"(bound {REL_BOUND:g})", flush=True)
-        check(e_a2 <= REL_BOUND, f"A2 disagrees: {e_a2}")
-        check(e_a1 <= REL_BOUND, f"A1 disagrees: {e_a1}")
-        check(max(e_b) <= REL_BOUND, f"B disagrees: {e_b}")
+        e_b = max_abs(zip(kb[:2], pb[:2]))
+        e_tv = rel(kb[2], pb[2])
+        stats["B"]["max_abs_err"] = max(stats["B"]["max_abs_err"], e_b)
+        code = tv_cuda.barrier_error()
+        print(f"phase2 B={B} {M}x{N}: geometry tile {geo.tile}, {geo.tiles} tiles a chain, "
+              f"{geo.chains} chains a group, {geo.groups} groups, grid {geo.grid}; A2 tol=0 "
+              f"max|Δf| {e_a2:g}; A2 tol=1e-3 iters kernel {it_k} plain {it_p}, last residual "
+              f"rel {e_res:.3e}; A1 warm tol=0 max|Δ| f/px/py {e_a1:g}; A1 tol=1e-3 iters "
+              f"kernel {wit_k} plain {wit_p}; B max|Δ| xn/proxn {e_b:g}, tv rel {e_tv:.3e} "
+              f"(bound {REL_BOUND:g}); barrier error code {code}", flush=True)
+        check(code == 0, f"a barrier gave up (code {code})")
+        check(e_a2 == 0.0, f"A2 is not bit-equal to its plain version: {e_a2}")
+        check(e_a1 == 0.0, f"A1 is not bit-equal to its plain version: {e_a1}")
+        check(e_b == 0.0, f"B is not bit-equal to its plain version: {e_b}")
+        check(max(e_tv, e_res) <= REL_BOUND, f"B's tv or A2's residual differ: {e_tv}, {e_res}")
         check(kst.iters.tolist() == pst.iters.tolist() == [25] * B, "tol=0 must run 25 sweeps")
         check(it_k == it_p, f"A2 sweep counts differ: {it_k} vs {it_p}")
         check(wit_k == wit_p, f"A1 sweep counts differ: {wit_k} vs {wit_p}")
+        check(B < 3 or {1, 25} <= set(it_k), f"no chain stopped at sweep 1 and at 25: {it_k}")
 
         times = {
             "A2": (lambda: tv_cuda.chambolle_prox_cuda(g, lam_sapg, 25, return_state=False),
@@ -359,17 +380,127 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
                   lambda: fused_step_cuda.myula_prox_tv_plain(x, prox, grad, z, *sc, 25)),
         }
         for k, (fk, fp) in times.items():
-            mk, mp = cuda_ms(fk), cuda_ms(fp)
-            print(f"phase2 time {k} B={B} {M}x{N}: kernel {mk * 1e3:.1f} us, plain "
-                  f"{mp * 1e3:.1f} us per call [{tag}]", flush=True)
+            mk, mp, dk = cuda_ms(fk), cuda_ms(fp), device_us(torch, fk, "resident")
+            print(f"phase2 time {k} B={B} {M}x{N}: kernel {mk * 1e3:.1f} us (device "
+                  f"{dk:.1f} us), plain {mp * 1e3:.1f} us per call [{tag}]", flush=True)
             if (B, M, N) == (1, 512, 512):
                 stats[k]["ms"], stats[k]["plain_ms"] = mk, mp
+                stats[k]["device_us"] = dk
         if (B, M, N) == (1, 512, 512):   # the timed calls' work (tol=1e-3)
             b_sweeps = tv_cuda.chambolle_prox_cuda(kb[0], lam_sapg, 25, return_state=False)[1]
             stats["A2"]["work"] = prox_work(B, M, N, sum(it_k))
             stats["A1"]["work"] = prox_work(B, M, N, sum(wit_k), duals_io=True)
             stats["B"]["work"] = step_work(B, M, N, sum(b_sweeps.iters.tolist()))
     return stats
+
+
+def resident_design(torch, dev, tv_cuda, fused_step_cuda, build, wheel, tag):
+    """The resident kernel's registers, spills and occupancy; its exact root
+    against sqrtf on every non-negative float and its exact quotient against
+    '/' on a sample of pairs; the barrier's cost a sweep;
+    one launch a call (a profiler listing of one call of A1, A2, B and C)."""
+    occ = tv_cuda.resident_occupancy(dev)
+    ptxas = build.kernel_usage("resident_")
+    cap = tv_cuda.resident_capacity(dev)
+    geo = tv_cuda.resident_geometry(16, 512, 512, cap)
+    print(f"phase2 design resident: ptxas {ptxas}; runtime {occ}; capacity {cap} blocks; "
+          f"512x512 B=16 grid {geo.grid}", flush=True)
+    check(occ["blocks_per_sm"] == occ["launch_bounds_blocks"],
+          f"resident: {occ['blocks_per_sm']} blocks an SM, the design counts on "
+          f"{occ['launch_bounds_blocks']}")
+    check(sorted(ptxas) == ["resident_prox", "resident_prox_walk", "resident_step",
+                            "resident_step_walk"]
+          and all(v["spill_stores"] == v["spill_loads"] == 0 for v in ptxas.values()),
+          f"resident spills: ptxas {ptxas}")
+    check(geo.grid <= occ["blocks_per_sm"] * occ["sms"], "the 512² B=16 grid exceeds the card")
+
+    # sqrt_rn_exact against sqrtf on every non-negative float, ∞ and NaN
+    lib = build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def same_bits(got, want):
+        return (got.view(torch.int32) == want.view(torch.int32)) | (
+            torch.isnan(got) & torch.isnan(want))
+
+    bad = 0
+    for start in range(0, 0x7F800000 + 2, 1 << 27):
+        x = torch.arange(start, min(start + (1 << 27), 0x7F800002), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        r = torch.empty_like(x)
+        check(lib.sb_resident_exact_ops(x.data_ptr(), None, None, r.data_ptr(), x.numel(),
+                                        stream) == 0, "sb_resident_exact_ops failed")
+        bad += int((~same_bits(r, torch.sqrt(x))).sum())
+    print(f"phase2 design sqrt_rn_exact differs from sqrtf on {bad} of {0x7F800002} floats "
+          "(every non-negative float, +inf and a NaN)", flush=True)
+    check(bad == 0, "sqrt_rn_exact is not sqrtf")
+
+    # div_rn_exact against '/' on random pairs of floats (every exponent,
+    # subnormals, both signs), on pairs whose quotient is subnormal, and on
+    # every pair of special values
+    gq = torch.Generator(device=dev)
+    gq.manual_seed(23)
+    n = 1 << 25
+
+    def floats(hi):
+        mag = torch.randint(0, hi, (n,), generator=gq, device=dev, dtype=torch.int32)
+        sign = 1.0 - 2.0 * torch.randint(0, 2, (n,), generator=gq, device=dev)
+        return mag.view(torch.float32) * sign
+
+    specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -3.0,
+                             1e-45, 3e38, -5e-39], device=dev)
+    pairs = [(floats(0x7F800000), floats(0x7F800000)),
+             (floats(0x0C000000), torch.exp2(torch.rand(n, generator=gq, device=dev) * 31)),
+             (floats(0x7F800000), torch.exp2(torch.rand(n, generator=gq, device=dev) * 31)),
+             (specials.repeat_interleave(10), specials.repeat(10))]
+    bad = total = 0
+    for a, b in pairs:
+        q, r = torch.empty_like(a), torch.empty_like(a)
+        check(lib.sb_resident_exact_ops(a.data_ptr(), b.data_ptr(), q.data_ptr(), r.data_ptr(),
+                                        a.numel(), stream) == 0, "sb_resident_exact_ops failed")
+        bad += int((~same_bits(q, a / b)).sum())
+        total += a.numel()
+    print(f"phase2 design div_rn_exact differs from '/' on {bad} of {total} pairs", flush=True)
+    check(bad == 0, "div_rn_exact is not '/'")
+
+    # the barrier and border exchange a sweep: A2's device time for 1 and 25
+    # sweeps (tol 0) at 512² B=1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    g = (wheel[None] + 5.0 * torch.randn((1, 512, 512), generator=gen, device=dev)).contiguous()
+    lam = torch.tensor(0.02, device=dev)
+    t = {n: device_us(torch, lambda n=n: tv_cuda.chambolle_prox_cuda(
+        g, lam, n, tol=0.0, return_state=False), "resident", calls=10) for n in (1, 25)}
+    slope = (t[25] - t[1]) / 24
+    print(f"phase2 barrier cost 512x512 B=1: A2 device {t[1]:.2f} us (1 sweep), {t[25]:.2f} us "
+          f"(25 sweeps): {slope:.3f} us a sweep, sweep and barrier together [{tag}]", flush=True)
+
+    # one launch a call: every kernel a profiled call of A1, A2, B and C runs
+    from torch.profiler import ProfilerActivity, profile
+
+    px0 = torch.zeros_like(g)
+    sc = (torch.tensor(1.9, device=dev), torch.tensor(2.0, device=dev), lam)
+    seeds = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    calls = {
+        "A1": lambda: tv_cuda.chambolle_prox_cuda(g, lam, 10, duals=(px0, px0)),
+        "A2": lambda: tv_cuda.chambolle_prox_cuda(g, lam, 25, return_state=False),
+        "B": lambda: fused_step_cuda.myula_prox_tv(g, g, px0, px0, *sc, 25),
+        "C": lambda: fused_step_cuda.myula_prox_tv_rng(g, g, px0, seeds, *sc, 25),
+    }
+    listing = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        listing[name] = [(e.key.replace("(anonymous namespace)::", "").split("(")[0], e.count)
+                         for e in prof.key_averages() if e.device_time_total > 0]
+    print(f"phase2 kernels a profiled call runs: {json.dumps(listing)}", flush=True)
+    for name, ks in listing.items():
+        check(len(ks) == 1 and ks[0][1] == 1 and "resident" in ks[0][0],
+              f"{name} is not one launch: {ks}")
+    check(tv_cuda.barrier_error() == 0, "a barrier gave up")
+    return dict(occupancy=occ, ptxas=ptxas, sweep_us=slope)
 
 
 def mid_pass_scale(torch, img, lam, prox_plain, K=8):
@@ -397,13 +528,12 @@ def mid_pass_scale(torch, img, lam, prox_plain, K=8):
 
 
 def phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag):
-    """Blocked kernel vs plain vs the per-sweep kernel (A2/A1/B) at the
-    large path's shapes."""
+    """Blocked kernel vs plain vs the resident kernel (A2/A1/B) at the large
+    path's shapes."""
     g0 = torch.Generator(device=dev)
     g0.manual_seed(5)
     rows = {"F": "tiled", "G": "tiled", "H": "streamed", "I": "streamed"}
-    stats = {k: dict(max_abs_err=0.0, ms=None, plain_ms=None, per_sweep_ms=None)
-             for k in rows}
+    stats = {k: dict(max_abs_err=0.0, ms=None, plain_ms=None, resident_ms=None) for k in rows}
     lam_sapg = torch.tensor(0.02, device=dev)
     lam_salsa = torch.tensor(100.0, device=dev)
     # a natural image at every size: wheel.png tiled (it is 512²)
@@ -472,8 +602,31 @@ def phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag):
         exits += [((M, N), t) for t in it_k if inside_pass(tb, t, 25)]
         exits += [((M, N), t) for t in wit_k if inside_pass(tb, t, 10)]
 
+        # the resident kernel on the same inputs (the walk form at these
+        # sizes): bit-equal to the plain versions above, which are its own;
+        # B with gradF = grad/σ² at σ² = 2.5 (pb, the loop's last)
         s2_t = torch.tensor(2.5, device=dev)
         grad_div = (grad / s2_t).contiguous()
+        geo = tv_cuda.resident_geometry(B, M, N, tv_cuda.resident_capacity(dev))
+        rf, _ = tv_cuda.chambolle_prox_cuda(g, lam_sapg, 25, tol=0.0, return_state=False)
+        _, rst1 = tv_cuda.chambolle_prox_cuda(g, lam_sapg, 25, tol=1e-3, return_state=False)
+        rwf, rwst = tv_cuda.chambolle_prox_cuda(g, lam_salsa, 10, tol=0.0, duals=(px0, py0))
+        _, rwst1 = tv_cuda.chambolle_prox_cuda(g, lam_salsa, 10, duals=(px0, py0))
+        rb = fused_step_cuda.myula_prox_tv(x, prox, grad_div, z, *sc, 25, tol=0.0)
+        e_r = max_abs([(rf, pf), (rwf, qf), (rwst.px, qst.px), (rwst.py, qst.py),
+                       (rb[0], pb[0]), (rb[1], pb[1])])
+        e_rtv = rel(rb[2], pb[2])
+        r_it, rw_it = rst1.iters.tolist(), rwst1.iters.tolist()
+        code = tv_cuda.barrier_error()
+        print(f"phase5 resident B={B} {M}x{N}: geometry {geo.tiles} tiles a chain, walk "
+              f"{geo.walk} tiles a block, grid {geo.grid}; A2/A1/B max|Δ| {e_r:g}, B tv rel "
+              f"{e_rtv:.3e}; iters A2 {r_it}, A1 {rw_it}; barrier error code {code}", flush=True)
+        check(code == 0, f"a barrier gave up (code {code})")
+        check(e_r == 0.0, f"the resident kernel is not bit-equal to plain at {M}x{N}: {e_r}")
+        check(e_rtv <= REL_BOUND, f"B's TV differs at {M}x{N}: {e_rtv}")
+        check(r_it == it_p and rw_it == wit_p,
+              f"resident sweep counts differ at {M}x{N}: {r_it} vs {it_p}, {rw_it} vs {wit_p}")
+
         times = {
             f"{prox_row} fresh": (
                 lambda: tb.chambolle_prox_blocked(g, lam_sapg, 25, return_state=False),
@@ -491,11 +644,11 @@ def phase5_kernels(torch, dev, tv_cuda, fused_step_cuda, tb, wheel, tag):
         for name, (fk, fp, f1) in times.items():
             mk, mp, m1 = cuda_ms(fk), cuda_ms(fp), cuda_ms(f1)
             print(f"phase5 time {name} B={B} {M}x{N}: blocked {mk * 1e3:.1f} us, plain "
-                  f"{mp * 1e3:.1f} us, per-sweep kernel {m1 * 1e3:.1f} us per call [{tag}]",
+                  f"{mp * 1e3:.1f} us, resident kernel {m1 * 1e3:.1f} us per call [{tag}]",
                   flush=True)
             row = name.split()[0]
             if B == 1 and name != f"{prox_row} warm":
-                stats[row].update(ms=mk, plain_ms=mp, per_sweep_ms=m1)
+                stats[row].update(ms=mk, plain_ms=mp, resident_ms=m1)
         if B == 1:   # the timed calls' work (tol=1e-3; the step at σ² = 2.5)
             step_its = tb.chambolle_prox_blocked(kb[0], lam_sapg, 25, return_state=False)[1]
             stats[prox_row]["work"] = prox_work(B, M, N, sum(it_k))
@@ -557,20 +710,14 @@ def phase5_design(torch, dev, tb, tv_cuda, build, wheel, tag):
     fast operators against IEEE; the fixed share of a pass; the blocked prox
     beside A2 at 512² B=16.  Returns the design numbers."""
     import ctypes
-    import re
 
     lib = build.load_library()
     occ = (ctypes.c_int * 5)()
     check(lib.sb_blocked_occupancy(occ) == 0, "sb_blocked_occupancy failed")
     blocks, regs, local, threads, bound_blocks = list(occ)
     ptxas = None
-    lines = build.BUILD_LOG.splitlines()
-    for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln and "blocked_pass" in ln:
-            text = " ".join(lines[i + 1:i + 4])
-            ptxas = (int(re.search(r"Used (\d+) registers", text).group(1)),
-                     int(re.search(r"(\d+) bytes spill stores", text).group(1)),
-                     int(re.search(r"(\d+) bytes spill loads", text).group(1)))
+    for u in build.kernel_usage("blocked_pass").values():
+        ptxas = (u["registers"], u["spill_stores"], u["spill_loads"])
     design = dict(threads=threads, registers=regs, local_bytes=local, blocks_per_sm=blocks,
                   launch_bounds_blocks=bound_blocks, ptxas=ptxas)
     for n in (25, 10):
@@ -579,7 +726,7 @@ def phase5_design(torch, dev, tb, tv_cuda, build, wheel, tag):
         design[f"tile_{n}"] = geo[:3]
         design[f"halo_factor_{n}"] = round(tb.halo_factor(geo), 4)
     print(f"phase5 design blocked_pass: ptxas (registers, spill stores, spill loads) "
-          f"{ptxas if ptxas else 'not in this run (cached library)'}; runtime {regs} registers, "
+          f"{ptxas}; runtime {regs} registers, "
           f"{local} local bytes; "
           f"{threads} threads, {blocks} active blocks per SM (__launch_bounds__ {bound_blocks}); "
           f"25 sweeps: passes {design['split_25']}, tile (TY, TX, K) {design['tile_25']}, halo "
@@ -1274,6 +1421,7 @@ def main() -> int:
     wheel_np = load_image(os.path.join(HERE, "data", "images", "wheel.png"))
     wheel = torch.from_numpy(wheel_np.astype(np.float32)).to(dev)
     stats = phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag)
+    resident_design(torch, dev, tv_cuda, fused_step_cuda, _build, wheel, tag)
 
     # ---- phase 3 ------------------------------------------------------------
     cfg = gaussian_preset()
@@ -1353,7 +1501,7 @@ def main() -> int:
     phase5_rates(torch, dev, build_problem, gaussian_preset, salsa_tv, tag)
     for k, s in big_stats.items():
         print(f"phase5 row {k}: blocked {s['ms'] * 1e3:.1f} us, plain "
-              f"{s['plain_ms'] * 1e3:.1f} us, per-sweep kernel {s['per_sweep_ms'] * 1e3:.1f} us "
+              f"{s['plain_ms'] * 1e3:.1f} us, resident kernel {s['resident_ms'] * 1e3:.1f} us "
               f"at B=1 [{tag}]", flush=True)
     print(f"phase5 took {time.perf_counter() - t5:.1f} s", flush=True)
 

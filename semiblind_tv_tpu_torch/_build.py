@@ -13,7 +13,8 @@ Flags: `sm_90a` (Hopper), `-O3`, and `--fmad=false` so that the kernels'
 elementwise arithmetic rounds like PyTorch's separate operations (a later
 performance change may lift it and re-measure).  `-Xptxas -v` makes the
 register, shared-memory and spill report of every kernel part of
-`BUILD_LOG`.
+`BUILD_LOG`, which is kept beside the library (`build.log`), so that
+`kernel_usage` reads it for a library that an earlier process built.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["load_library", "BUILD_DIR", "LIB_PATH", "SOURCES"]
+__all__ = ["load_library", "kernel_usage", "BUILD_DIR", "LIB_PATH", "SOURCES"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -34,6 +35,7 @@ _HEADERS = tuple(sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 _LIB_NAME = "libsemiblind_tv_kernels.so"
 LIB_PATH = os.path.join(BUILD_DIR, _LIB_NAME)
+LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,13 +52,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sb_num_tiles": ([_I, _I], _I),
     "sb_chambolle_prox": (
-        [_P] * 13 + [_I] * 4 + [_F, _F, _P],
+        [_P] * 11 + [_I] * 6 + [_F, _F, _P],
         _I,
     ),
     "sb_myula_step": (
-        [_P] * 18 + [_I] * 4 + [_F, _F, _I, _P],
+        [_P] * 16 + [_I] * 6 + [_F, _F, _I, _P],
         _I,
     ),
+    "sb_resident_occupancy": ([_P], _I),
+    "sb_resident_exact_ops": ([_P] * 4 + [_L, _P], _I),
     "sb_chambolle_prox_blocked": (
         [_P] * 12 + [_I] * 7 + [_F, _F, _P],
         _I,
@@ -68,11 +72,11 @@ _SIGNATURES = {
     "sb_blocked_occupancy": ([_P], _I),
     "sb_blocked_fast_ops": ([_P] * 4 + [_L, _P], _I),
     "sb_myula_prox_tv_dft": (
-        [_P] * 29 + [_L] + [_I] * 4 + [_F, _F, _I, _P],
+        [_P] * 27 + [_L] + [_I] * 6 + [_F, _F, _I, _P],
         _I,
     ),
     "sb_myula_prox_tv_irdft": (
-        [_P] * 24 + [_L] + [_I] * 4 + [_F, _F, _I, _P],
+        [_P] * 22 + [_L] + [_I] * 6 + [_F, _F, _I, _P],
         _I,
     ),
     "sb_dft_products": (
@@ -138,6 +142,8 @@ def _build(lib_path: str) -> None:
             os.remove(o)
     if failed:
         raise RuntimeError("\n".join(failed) + "\n" + BUILD_LOG)
+    with open(LOG_PATH, "w") as f:
+        f.write(BUILD_LOG)
     os.replace(tmp, lib_path)
 
 
@@ -165,3 +171,33 @@ def load_library() -> ctypes.CDLL:
         fn.restype = restype
     _lib = lib
     return lib
+
+
+def kernel_usage(name: str) -> dict:
+    """ptxas's report of every kernel entry whose mangled name contains
+    `name`, from the build of the loaded library: {mangled name: {registers,
+    spill_stores, spill_loads, stack, smem}} (bytes but registers)."""
+    import re
+
+    load_library()
+    text = BUILD_LOG
+    if not text and os.path.isfile(LOG_PATH):
+        with open(LOG_PATH) as f:
+            text = f.read()
+    lines = text.splitlines()
+    out = {}
+    for i, ln in enumerate(lines):
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m is None or name not in m.group(1):
+            continue
+        block = " ".join(lines[i + 1:i + 4])
+
+        def num(pat):
+            found = re.search(pat, block)
+            return int(found.group(1)) if found else 0
+
+        out[m.group(1)] = dict(
+            registers=num(r"Used (\d+) registers"), spill_stores=num(r"(\d+) bytes spill stores"),
+            spill_loads=num(r"(\d+) bytes spill loads"), stack=num(r"(\d+) bytes stack frame"),
+            smem=num(r"(\d+) bytes smem"))
+    return out

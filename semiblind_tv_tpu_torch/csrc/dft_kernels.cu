@@ -21,7 +21,7 @@
 //   1. inverse columns:  Y = (1/M)·[CM −SM; SM CM]·gbufᵀ  (2M × B·Nhp),
 //      stored to ybuf: row b·M + i holds [Yre[b, i, :], Yim[b, i, :]]
 //   2. inverse rows:     grad = ybuf·[WCT; −WST]            (B·M × N)
-//   3. kernel B's sequence with σ² (tv_kernels.cu::sb_myula_step)
+//   3. kernel B's persistent launch with σ² (tv_kernels.cu::sb_myula_step)
 //   4. split xn to xbuf, then forward rows: F = xbuf·[CN −SN]  (B·M × 2Nhp),
 //      stored to fbuf: row b·Nhp + j holds [Fre[b, :, j], Fim[b, :, j]]
 //   5. forward columns:  X̂ = [CM SM; −SM CM]·fbufᵀ           (2M × B·Nhp),
@@ -590,10 +590,10 @@ int dft_step(const float* ghat, const float* x, const float* prox, const float* 
              const float* fac_inv, const float* w_t, const float* fac_fwd, const float* cns_t,
              const float* gamma, const float* lam, const float* lam_theta, const float* sigma2,
              float* xn, float* proxn, float* tv, float* xhat, float* gbuf, float* ybuf,
-             float* grad, float* xbuf, float* fbuf, float* ws, float* px_buf, float* py_buf,
-             int* iters, float* err, int* active, float* partials, const int* plan,
-             long long ws_floats, int B, int M, int N, int n_sweeps, float tau, float tol,
-             int positivity, void* stream) {
+             float* grad, float* xbuf, float* fbuf, float* ws, int* iters, float* err,
+             int* ws_int, float* ws_f, const int* plan, long long ws_floats, int B, int M, int N,
+             int chains, int grid, int n_sweeps, float tau, float tol, int positivity,
+             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g(B, M, N, plan);
   if (!g.ok()) return cudaErrorInvalidValue;
@@ -602,8 +602,8 @@ int dft_step(const float* ghat, const float* x, const float* prox, const float* 
   if (e != cudaSuccess) return e;
   // 3. MYULA with gradF = grad/σ², the prox and the TV: kernel B
   const int code = sb_myula_step(x, prox, grad, z, nullptr, gamma, lam, lam_theta, sigma2,
-                                 xn, proxn, tv, px_buf, py_buf, iters, err, active, partials,
-                                 B, M, N, n_sweeps, tau, tol, positivity, stream);
+                                 xn, proxn, tv, iters, err, ws_int, ws_f, B, M, N, chains, grid,
+                                 n_sweeps, tau, tol, positivity, stream);
   if (code != 0 || xhat == nullptr) return code;
   return forward_products(xn, fac_fwd, cns_t, xbuf, fbuf, xhat, ws, (size_t)ws_floats, plan, g,
                           st);
@@ -617,25 +617,24 @@ extern "C" {
 // factors fac_inv, fac_fwd (2, 2M, ld1), w_t (2, N, 2Nhp), cns_t (2, 2Nhp,
 // ldN) (ops/fused_dft_cuda.py::pack_factors); scratch gbuf, fbuf (2, B·Nhp,
 // ld1), ybuf (2, B·M, 2Nhp), xbuf (2, B·M, ldN), grad (B, M, N), ws
-// (ws_floats), and kernel B's px_buf/py_buf (2, B, M, N), iters/err/active
-// (B), partials (B, ⌈M/8⌉·⌈N/32⌉); plan: host int[11] (the tile plans and
-// the geometry, ops/fused_dft_cuda.py::_host_plan).
+// (ws_floats), and kernel B's iters/err (B), workspace ws_int/ws_f and
+// geometry chains/grid (tv_kernels.cu::sb_myula_step); plan: host int[11]
+// (the tile plans and the geometry, ops/fused_dft_cuda.py::_host_plan).
 int sb_myula_prox_tv_dft(const float* ghat, const float* x, const float* prox, const float* z,
                          const float* fac_inv, const float* w_t, const float* fac_fwd,
                          const float* cns_t, const float* gamma, const float* lam,
                          const float* lam_theta, const float* sigma2, float* xn, float* proxn,
                          float* tv, float* xhat, float* gbuf, float* ybuf, float* grad,
-                         float* xbuf, float* fbuf, float* ws, float* px_buf, float* py_buf,
-                         int* iters, float* err, int* active, float* partials, const int* plan,
-                         long long ws_floats, int B, int M, int N, int n_sweeps, float tau,
-                         float tol, int positivity, void* stream) {
+                         float* xbuf, float* fbuf, float* ws, int* iters, float* err,
+                         int* ws_int, float* ws_f, const int* plan, long long ws_floats, int B,
+                         int M, int N, int chains, int grid, int n_sweeps, float tau, float tol,
+                         int positivity, void* stream) {
   if (fac_fwd == nullptr || cns_t == nullptr || xhat == nullptr || xbuf == nullptr ||
       fbuf == nullptr)
     return cudaErrorInvalidValue;
   return dft_step(ghat, x, prox, z, fac_inv, w_t, fac_fwd, cns_t, gamma, lam, lam_theta, sigma2,
-                  xn, proxn, tv, xhat, gbuf, ybuf, grad, xbuf, fbuf, ws, px_buf, py_buf, iters,
-                  err, active, partials, plan, ws_floats, B, M, N, n_sweeps, tau, tol,
-                  positivity, stream);
+                  xn, proxn, tv, xhat, gbuf, ybuf, grad, xbuf, fbuf, ws, iters, err, ws_int, ws_f,
+                  plan, ws_floats, B, M, N, chains, grid, n_sweeps, tau, tol, positivity, stream);
 }
 
 // Kernel E: D's steps 0–3 (the caller takes the forward transform).
@@ -643,14 +642,14 @@ int sb_myula_prox_tv_irdft(const float* ghat, const float* x, const float* prox,
                            const float* z, const float* fac_inv, const float* w_t,
                            const float* gamma, const float* lam, const float* lam_theta,
                            const float* sigma2, float* xn, float* proxn, float* tv, float* gbuf,
-                           float* ybuf, float* grad, float* ws, float* px_buf, float* py_buf,
-                           int* iters, float* err, int* active, float* partials,
-                           const int* plan, long long ws_floats, int B, int M, int N,
-                           int n_sweeps, float tau, float tol, int positivity, void* stream) {
+                           float* ybuf, float* grad, float* ws, int* iters, float* err,
+                           int* ws_int, float* ws_f, const int* plan, long long ws_floats, int B,
+                           int M, int N, int chains, int grid, int n_sweeps, float tau,
+                           float tol, int positivity, void* stream) {
   return dft_step(ghat, x, prox, z, fac_inv, w_t, nullptr, nullptr, gamma, lam, lam_theta,
-                  sigma2, xn, proxn, tv, nullptr, gbuf, ybuf, grad, nullptr, nullptr, ws, px_buf,
-                  py_buf, iters, err, active, partials, plan, ws_floats, B, M, N, n_sweeps, tau,
-                  tol, positivity, stream);
+                  sigma2, xn, proxn, tv, nullptr, gbuf, ybuf, grad, nullptr, nullptr, ws, iters,
+                  err, ws_int, ws_f, plan, ws_floats, B, M, N, chains, grid, n_sweeps, tau, tol,
+                  positivity, stream);
 }
 
 // D's and E's products alone (timing and the card tests): grad = irfft2(Ĝ)

@@ -11,7 +11,7 @@ Replaces `semiblind_tv_tpu/ops/fused_step_pallas.py::myula_prox_tv_dft`
 
 On Hopper the (M, M) factor matrices alone exceed one SM's shared memory,
 so each is a short launch sequence on one stream with no host sync: the
-inverse transform as two products, kernel B's sequence with σ²
+inverse transform as two products, kernel B's one persistent launch with σ²
 (csrc/tv_kernels.cu), and for D the forward transform as two more, which
 write x̂ straight into the complex output.  The products run on the port's
 own GEMM: wgmma in 3×TF32 (each value split into tf32 hi and lo, the sum
@@ -49,7 +49,12 @@ from typing import Tuple
 import torch
 
 from semiblind_tv_tpu_torch.ops.tv import chambolle_prox, tv_norm
-from semiblind_tv_tpu_torch.ops.tv_cuda import check_fields, check_status, scalar_on
+from semiblind_tv_tpu_torch.ops.tv_cuda import (
+    check_fields,
+    check_status,
+    resident_launch,
+    scalar_on,
+)
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
 __all__ = [
@@ -405,16 +410,12 @@ def _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_
         proxn = torch.empty_like(x)
         tv = torch.empty((B,), **f32)
         grad = torch.empty((B, M, N), **f32)
-        px_buf = torch.empty((2, B, M, N), **f32)
-        py_buf = torch.empty_like(px_buf)
         iters = torch.empty((B,), dtype=torch.int32, device=dev)
         err = torch.empty((B,), **f32)
-        active = torch.empty((B,), dtype=torch.int32, device=dev)
-        partials = torch.empty((B, lib.sb_num_tiles(M, N)), **f32)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        tail = (px_buf.data_ptr(), py_buf.data_ptr(), iters.data_ptr(), err.data_ptr(),
-                active.data_ptr(), partials.data_ptr(), ctypes.addressof(plan), ws_floats, B, M,
-                N, int(n_sweeps), float(tau), float(tol), int(bool(positivity)), stream)
+        geo, ws_int, ws_f, stream = resident_launch(x)
+        tail = (iters.data_ptr(), err.data_ptr(), ws_int.data_ptr(), ws_f.data_ptr(),
+                ctypes.addressof(plan), ws_floats, B, M, N, geo.chains, geo.grid, int(n_sweeps),
+                float(tau), float(tol), int(bool(positivity)), stream)
         head = (torch.view_as_real(ghat).data_ptr(), x.data_ptr(), prox_cache.data_ptr(),
                 z.data_ptr(), packed["fac_inv"].data_ptr(), packed["w_t"].data_ptr())
         mid = (*(s.data_ptr() for s in scal), xn.data_ptr(), proxn.data_ptr(), tv.data_ptr())

@@ -10,12 +10,14 @@ Replaces `semiblind_tv_tpu/ops/fused_step_pallas.py::myula_prox_tv`
     tv    = Σ √((xn − roll_col xn)² + (xn − roll_row xn)²)  circular TV norm
 
 On Hopper the image does not fit one SM's shared memory, so the segment is
-a short launch sequence on one stream with no host sync: a prologue that
-writes xn and per-tile TV partials (one fixed-order reduce gives tv[b]),
-then kernel A's sweep/reduce pair n_sweeps times on xn/(λθ), then the
-assembly of proxn.  Bound at 512²: launch latency and L2 traffic, as
-kernel A.  γ, λ and λθ are read from device memory, so the SA loop never
-copies them to the host.
+kernel A's persistent launch (ops/tv_cuda.py) with a prologue: each tile's
+block computes xn of its tile (and of the row and column around it, again
+from the inputs), writes xn, and keeps xn/(λθ) in registers; the TV
+partials ride on the chain's first barrier; then the sweeps and the
+assembly of proxn, all in one launch.  γ, λ and λθ are read from device
+memory, so the SA loop never copies them to the host.
+`myula_prox_tv_emulated` replays the launch's sums (the TV's and the
+residuals', in the kernel's order) on the CPU.
 
 Above 512², `myula_prox_tv_blocked` replaces
 `fused_step_pallas.py::myula_prox_tv_tiled` (kernel G, 1024²) and
@@ -51,12 +53,21 @@ import torch
 from semiblind_tv_tpu_torch.ops.rng import philox_normals
 from semiblind_tv_tpu_torch.ops.tv import chambolle_prox, tv_norm
 from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import STATE_COLS, blocked_geometry, check_geometry
-from semiblind_tv_tpu_torch.ops.tv_cuda import check_fields, check_status, scalar_on
+from semiblind_tv_tpu_torch.ops.tv_cuda import (
+    chain_total,
+    chambolle_prox_resident_emulated,
+    check_fields,
+    check_status,
+    resident_launch,
+    scalar_on,
+    tile_sums,
+)
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
 __all__ = [
     "myula_prox_tv", "myula_prox_tv_plain", "myula_prox_tv_rng", "myula_prox_tv_rng_plain",
-    "myula_prox_tv_blocked", "myula_prox_tv_blocked_plain", "LAUNCHES", "RNG_LAUNCHES",
+    "myula_prox_tv_blocked", "myula_prox_tv_blocked_plain", "myula_prox_tv_emulated",
+    "LAUNCHES", "RNG_LAUNCHES",
     "BLOCKED_LAUNCHES", "BLOCKED_SEEDS_LAUNCHES",
 ]
 
@@ -88,10 +99,31 @@ def myula_prox_tv_plain(
     return xn, proxn, tv_norm(xn)
 
 
+def myula_prox_tv_emulated(
+    x, prox_cache, grad_f, z, gamma, lam, lam_theta,
+    n_sweeps: int = 25, tau: float = 0.249, tol: float = 1e-3, positivity: bool = True,
+    capacity=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel B's launch on the CPU, (B, M, N) fields: xn by the plain
+    update, its circular TV as the fixed-order sum (chain_total) of the
+    tiles' partials (tile_sums) of √(dh² + dv²), then the prox's schedule
+    (chambolle_prox_resident_emulated) on xn with λθ.  Returns (xn, proxn,
+    tv, sweeps run)."""
+    xn = myula_kernel_step(x, prox_cache, grad_f, gamma, lam, z, positivity)
+    dh = xn - torch.roll(xn, 1, dims=-1)
+    dv = xn - torch.roll(xn, 1, dims=-2)
+    t = torch.sqrt(dh * dh + dv * dv)
+    tv = torch.stack([chain_total(tile_sums(tb)) for tb in t])
+    proxn, st = chambolle_prox_resident_emulated(xn, lam_theta, n_sweeps, tau, tol,
+                                                 return_state=False, capacity=capacity)
+    return xn, proxn, tv, st.iters
+
+
 def _launch_step(x, prox_cache, grad_f, z, seeds, gamma, lam, lam_theta, n_sweeps, tau, tol,
                  positivity, what: str):
     """Check, allocate and launch kernel B (noise z) or C (noise drawn from
-    seeds) on the card: csrc/tv_kernels.cu::sb_myula_step with σ² = 1."""
+    seeds) on the card: csrc/tv_kernels.cu::sb_myula_step with σ² = 1, one
+    persistent launch (tv_cuda.resident_launch's geometry and workspace)."""
     from semiblind_tv_tpu_torch._build import load_library
 
     squeeze = x.ndim == 2
@@ -111,25 +143,20 @@ def _launch_step(x, prox_cache, grad_f, z, seeds, gamma, lam, lam_theta, n_sweep
     with torch.cuda.device(x.device):
         scal = [scalar_on(v, x, n) for v, n in
                 ((gamma, "gamma"), (lam, "lam"), (lam_theta, "lam_theta"))]
+        geo, ws_int, ws_f, stream = resident_launch(x)
         dev = x.device
         xn = torch.empty_like(x)
         proxn = torch.empty_like(x)
         tv = torch.empty((B,), dtype=torch.float32, device=dev)
-        px_buf = torch.empty((2, B, M, N), dtype=torch.float32, device=dev)
-        py_buf = torch.empty_like(px_buf)
         iters = torch.empty((B,), dtype=torch.int32, device=dev)
         err = torch.empty((B,), dtype=torch.float32, device=dev)
-        active = torch.empty((B,), dtype=torch.int32, device=dev)
-        partials = torch.empty((B, lib.sb_num_tiles(M, N)), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.sb_myula_step(
             x.data_ptr(), prox_cache.data_ptr(), grad_f.data_ptr(),
             None if z is None else z.data_ptr(), None if seeds is None else seeds.data_ptr(),
             *(s.data_ptr() for s in scal), None,
-            xn.data_ptr(), proxn.data_ptr(), tv.data_ptr(),
-            px_buf.data_ptr(), py_buf.data_ptr(), iters.data_ptr(), err.data_ptr(),
-            active.data_ptr(), partials.data_ptr(),
-            B, M, N, int(n_sweeps), float(tau), float(tol), int(bool(positivity)), stream,
+            xn.data_ptr(), proxn.data_ptr(), tv.data_ptr(), iters.data_ptr(), err.data_ptr(),
+            ws_int.data_ptr(), ws_f.data_ptr(), B, M, N, geo.chains, geo.grid, int(n_sweeps),
+            float(tau), float(tol), int(bool(positivity)), stream,
         )
     check_status(code, what)
     if squeeze:

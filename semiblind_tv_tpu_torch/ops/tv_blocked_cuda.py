@@ -28,6 +28,7 @@ import torch
 
 from semiblind_tv_tpu_torch.ops.tv import ChambolleState, divergence
 from semiblind_tv_tpu_torch.ops.tv_cuda import (
+    _tree,
     chambolle_prox_plain,
     check_fields,
     check_status,
@@ -192,18 +193,6 @@ def chambolle_prox_blocked(
 # ---------------------------------------------------------------------------
 # The kernel's schedule, replayed in PyTorch
 # ---------------------------------------------------------------------------
-
-def _tree(v: torch.Tensor) -> torch.Tensor:
-    """Fixed-order tree over the last dim (a power of two): step s adds
-    v[s:2s] to v[:s], as a warp shuffle-down tree and common.cuh's
-    shared-memory trees do."""
-    v = v.clone()
-    s = v.shape[-1] // 2
-    while s > 0:
-        v[..., :s] = v[..., :s] + v[..., s:2 * s]
-        s //= 2
-    return v[..., 0]
-
 
 def _block_sum(r2: torch.Tensor) -> torch.Tensor:
     """blocked_pass's per-tile sum of (T, wh, ww) window values (zero

@@ -3,9 +3,9 @@ ops/fused_step_cuda.py (kernel B).
 
 On the CPU the wrappers run their plain versions; those are held against
 the JAX package's Pallas kernels in interpret mode (as
-tests/test_pallas_interpret.py runs them), in float64 at 1e-12.  A pure-torch
-emulation of the CUDA launch schedule (buffer parity by iters % 2, per-chain
-`active` flags, fixed-order tile partials) is held against the whole-image
+tests/test_pallas_interpret.py runs them), in float64 at 1e-12.  The CPU
+emulation of the resident kernel's schedule (groups of chains, fixed-order
+tile partials, the per-chain sum and exit) is held against the whole-image
 plain prox, so the schedule's logic is tested off the card.  The kernels
 themselves are tested on the card by tests/test_torch_on_card.py.
 """
@@ -17,7 +17,6 @@ import torch
 from semiblind_tv_tpu.ops.fused_step_pallas import myula_prox_tv as j_myula_prox_tv
 from semiblind_tv_tpu.ops.tv_pallas import chambolle_prox_pallas
 from semiblind_tv_tpu_torch.ops import fused_step_cuda, tv_cuda
-from semiblind_tv_tpu_torch.ops.tv import divergence, forward_gradient
 
 TOL = 1e-12
 SCALES = (1e-5, 1e-4, 1.0)  # chains stop after 1, a few, and all sweeps
@@ -127,92 +126,26 @@ def test_wrappers_raise_on_other_devices():
 # Emulation of the CUDA launch schedule (csrc/tv_kernels.cu)
 # ---------------------------------------------------------------------------
 
-_RT = 256  # threads of the per-chain reduce block
-
-
-def _tree(v):
-    """Fixed-order shared-memory tree over the last dim (a power of two)."""
-    v = v.clone()
-    s = v.shape[-1] // 2
-    while s > 0:
-        v[..., :s] = v[..., :s] + v[..., s:2 * s]
-        s //= 2
-    return v[..., 0]
-
-
-def _tile_partials(r2):
-    """Per-tile sums in the kernel's order: tiles row-major, threads
-    t = ty*TX + tx within a tile, out-of-range threads contributing 0."""
-    TX, TY = tv_cuda.TILE_X, tv_cuda.TILE_Y
-    M, N = r2.shape
-    gy, gx = -(-M // TY), -(-N // TX)
-    pad = torch.zeros((gy * TY, gx * TX), dtype=r2.dtype)
-    pad[:M, :N] = r2
-    tiles = pad.reshape(gy, TY, gx, TX).permute(0, 2, 1, 3).reshape(gy * gx, TY * TX)
-    return _tree(tiles)
-
-
-def _chain_sum(partials):
-    n = partials.shape[0]
-    lanes = torch.zeros(_RT, dtype=partials.dtype)
-    for k in range(n):  # thread t accumulates k = t, t + RT, ... in order
-        lanes[k % _RT] = lanes[k % _RT] + partials[k]
-    return _tree(lanes)
-
-
-def emulate_kernel_a(g, lam, max_iter, tau=0.249, tol=1e-3, duals=None):
-    B, M, N = g.shape
-    buf_x = torch.zeros((2, B, M, N), dtype=g.dtype)
-    buf_y = torch.zeros_like(buf_x)
-    if duals is not None:
-        buf_x[0], buf_y[0] = duals
-    iters = torch.zeros(B, dtype=torch.int32)
-    err = torch.full((B,), float("inf"), dtype=g.dtype)
-    active = torch.ones(B, dtype=torch.bool)
-    partials = torch.full((B, -(-M // tv_cuda.TILE_Y) * -(-N // tv_cuda.TILE_X)), float("nan"),
-                          dtype=g.dtype)
-    for s in range(max_iter):
-        rd, wr = s % 2, (s + 1) % 2
-        for b in range(B):          # chambolle_sweep: inactive chains return
-            if not active[b]:
-                continue
-            px, py = buf_x[rd, b], buf_y[rd, b]
-            u = divergence(px, py) - g[b] / lam
-            upx, upy = forward_gradient(u)
-            tmp = torch.sqrt(upx * upx + upy * upy)
-            rx = -upx + tmp * px
-            ry = -upy + tmp * py
-            denom = 1.0 + tau * tmp
-            buf_x[wr, b] = (px + tau * upx) / denom
-            buf_y[wr, b] = (py + tau * upy) / denom
-            partials[b] = _tile_partials(rx * rx + ry * ry)
-        for b in range(B):          # residual_reduce: stale partials skipped
-            if not active[b]:
-                continue
-            e = torch.sqrt(_chain_sum(partials[b]))
-            err[b] = e
-            iters[b] += 1
-            active[b] = bool(e > tol)
-    par = (iters % 2).long()        # assemble: buffer iters[b] % 2
-    px = buf_x[par, torch.arange(B)]
-    py = buf_y[par, torch.arange(B)]
-    return g - lam * divergence(px, py), px, py, iters, err
-
-
-@pytest.mark.parametrize("shape", [(3, 32, 32), (3, 20, 44)])
+@pytest.mark.parametrize("shape", [(3, 32, 32), (3, 20, 44), (3, 70, 130)])
 @pytest.mark.parametrize("warm", [False, True])
 def test_launch_schedule_emulation_matches_plain_prox(shape, warm):
+    """The resident kernel's schedule (groups of chains, per-tile partials in
+    the kernel's order, the per-chain fixed-order sum and the exit) against
+    the whole-image plain prox; 70 × 130 is nine tiles a chain."""
     g = torch.from_numpy(_batch(shape, seed=6))
     duals = None
     if warm:
         rng = np.random.default_rng(7)
         duals = tuple(torch.from_numpy(rng.standard_normal(shape) * 1e-6) for _ in range(2))
-    # 24 sweeps at most: the chains end on odd (1) and even (24) sweep counts
-    f, px, py, iters, err = emulate_kernel_a(g, 0.5, 24, duals=duals)
-    pf, st = tv_cuda.chambolle_prox_plain(g, 0.5, 24, duals=duals)
-    np.testing.assert_array_equal(iters.numpy(), st.iters.numpy())
-    assert {1, 24} <= set(iters.tolist())
+    # 24 sweeps at most: the chains end on odd (1) and even (24) sweep counts;
+    # a capacity of 18 blocks holds two chains of nine tiles, so 70 × 130 runs
+    # in two groups
+    cap = 18 if shape[1] > 32 else None
+    f, st = tv_cuda.chambolle_prox_resident_emulated(g, 0.5, 24, duals=duals, capacity=cap)
+    pf, pst = tv_cuda.chambolle_prox_plain(g, 0.5, 24, duals=duals)
+    np.testing.assert_array_equal(st.iters.numpy(), pst.iters.numpy())
+    assert {1, 24} <= set(st.iters.tolist())
     _close(f.numpy(), pf.numpy())
-    _close(px.numpy(), st.px.numpy())
-    _close(py.numpy(), st.py.numpy())
-    np.testing.assert_allclose(err.numpy(), st.err.numpy(), rtol=1e-12)
+    _close(st.px.numpy(), pst.px.numpy())
+    _close(st.py.numpy(), pst.py.numpy())
+    np.testing.assert_allclose(st.err.numpy(), pst.err.numpy(), rtol=1e-12)

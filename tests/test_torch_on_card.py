@@ -6,8 +6,17 @@ port's dependencies:
 
     python -m pytest --noconftest tests/test_torch_on_card.py -q
 
-Inputs are float32; the kernels are built with --fmad=false, so f, the
-duals, xn and proxn agree with the plain versions to 1e-5 of their largest
+Inputs are float32; the kernels are built with --fmad=false.  The
+resident kernel of csrc/tv_kernels.cu (A1, A2, B and C, one launch a call)
+gives f, the duals, xn and proxn bit-equal to the plain versions, at tol=0
+and at tol=1e-3 on chains that stop on different sweeps (B=40 at 256² in
+several groups of chains, ragged 480×353 and 20×44, and chains of more
+tiles than the card holds at once, in the walk form), also where operands
+leave its fast quotient's range; the TV and the last residual, summed in
+another order, within 1e-5; its barrier error code stays 0, ptxas reports
+no spill, it gets the blocks an SM its design names, and a grid the card
+cannot hold at once is refused and raises.  The other kernels' f, duals,
+xn and proxn agree with the plain versions to 1e-5 of their largest
 magnitude at a fixed sweep count (tol=0) — the residual and TV sums are
 taken in another order — and the early exit stops on the same sweep.  The
 blocked kernel (csrc/tv_blocked.cu) runs at shapes of several tiles with
@@ -74,32 +83,193 @@ def _field(rng, shape, dev, scale=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
 
 
+# ---------------------------------------------------------------------------
+# The resident kernel (csrc/tv_kernels.cu): A1, A2, B and C, one launch a call
+# ---------------------------------------------------------------------------
+
+RESIDENT_SHAPES = [(1, 64, 64), (3, 48, 40), (2, 17, 33), (2, 20, 44), (1, 2, 2), (2, 100, 200)]
+# chains of more tiles than the card's 264 blocks: the walk form (342 and 512 tiles)
+WALK_SHAPES = [(2, 600, 1100), (1, 1024, 1024)]
+_STEP_SCALARS = (1.9, 2.0, 0.02)
+
+
+def _step_fields(rng, shape, dev):
+    x = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(dev)
+    return x, x + _field(rng, shape, dev, 0.1), _field(rng, shape, dev, 0.01)
+
+
+def _resident_call(form, shape, dev, tol, seed=0, scales=None):
+    """(kernel outputs, plain outputs, launches the call made) of one form
+    on the same inputs; scales multiply the chains' inputs."""
+    rng = np.random.default_rng(seed)
+    sc = torch.ones(shape[0], 1, 1, device=dev) if scales is None else scales.to(dev)[:, None, None]
+    if form in ("A1", "A2"):
+        g = (torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(dev) * sc)
+        if form == "A1":
+            duals = (_field(rng, shape, dev) * sc, _field(rng, shape, dev) * sc)
+            args = (g, torch.tensor(20.0, device=dev), 10, 0.249, tol, duals)
+        else:
+            args = (g, torch.tensor(0.5, device=dev), 25, 0.249, tol, None, False)
+        before = tv_cuda.LAUNCHES
+        f, st = tv_cuda.chambolle_prox_cuda(*args)
+        launches = tv_cuda.LAUNCHES - before
+        pf, pst = tv_cuda.chambolle_prox_plain(*args)
+        kernel = (f, st.px, st.py, st.iters, st.err)
+        return kernel, (pf, pst.px, pst.py, pst.iters, pst.err), launches
+    x, prox, grad = (v * sc for v in _step_fields(rng, shape, dev))
+    scal = tuple(torch.tensor(v, device=dev) for v in _STEP_SCALARS)
+    if form == "B":
+        z = _field(rng, shape, dev)
+        before = fused_step_cuda.LAUNCHES
+        k = fused_step_cuda.myula_prox_tv(x, prox, grad, z, *scal, 25, tol=tol)
+        launches = fused_step_cuda.LAUNCHES - before
+        p = fused_step_cuda.myula_prox_tv_plain(x, prox, grad, z, *scal, 25, tol=tol)
+    else:
+        seeds = _seeds(rng, shape[0], dev)
+        before = fused_step_cuda.RNG_LAUNCHES
+        k = fused_step_cuda.myula_prox_tv_rng(x, prox, grad, seeds, *scal, 25, tol=tol)
+        launches = fused_step_cuda.RNG_LAUNCHES - before
+        p = fused_step_cuda.myula_prox_tv_rng_plain(x, prox, grad, seeds, *scal, 25, tol=tol)
+    return k, p, launches
+
+
+def _assert_resident_matches(form, k, p):
+    """Fields bit-equal; sums (the TV, the last residual) within REL, as
+    they are taken in another order; sweep counts equal."""
+    if form in ("A1", "A2"):
+        for a, b in zip(k[:3], p[:3]):
+            assert torch.equal(a, b)
+        assert torch.equal(k[3].cpu(), p[3].cpu())
+        done = k[3] > 0
+        assert _rel_err(k[4][done], p[4][done]) <= REL
+    else:
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert _rel_err(k[2], p[2]) <= REL
+    assert tv_cuda.barrier_error() == 0
+
+
+@pytest.mark.parametrize("shape", RESIDENT_SHAPES + WALK_SHAPES)
+@pytest.mark.parametrize("form", ["A1", "A2", "B", "C"])
+def test_resident_forms_bit_equal_to_plain(cuda_device, form, shape):
+    """tol=0: every chain runs every sweep; one launch a call."""
+    k, p, launches = _resident_call(form, shape, cuda_device, 0.0)
+    torch.cuda.synchronize()
+    assert launches == 1
+    _assert_resident_matches(form, k, p)
+
+
+@pytest.mark.parametrize("shape", [(40, 256, 256), (3, 480, 353), (2, 20, 44), (6, 100, 130),
+                                   (4, 700, 1100)])
+@pytest.mark.parametrize("form", ["A1", "A2", "B"])
+def test_resident_sweep_counts_match_plain(cuda_device, form, shape):
+    """tol=1e-3 on chains scaled from 1 down to 1e-9, which stop on sweep 1,
+    on later sweeps or never; B=40 at 256² runs in five groups of chains
+    (8 chains of 32 tiles a group at 264 blocks), 700×1100 in the walk
+    form (396 tiles a chain)."""
+    scales = torch.logspace(0, -9, shape[0]) if shape[0] > 1 else torch.ones(1)
+    k, p, _ = _resident_call(form, shape, cuda_device, 1e-3, seed=3, scales=scales)
+    torch.cuda.synchronize()
+    _assert_resident_matches(form, k, p)
+    if form == "A2" and shape[0] > 2:
+        its = k[3].tolist()
+        assert 1 in its and min(its) < max(its), its
+    geo = tv_cuda.resident_geometry(*shape, tv_cuda.resident_capacity(cuda_device))
+    if shape == (40, 256, 256):
+        assert geo.groups > 1
+    assert (geo.walk > 1) == (shape == (4, 700, 1100))
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e30])
+@pytest.mark.parametrize("form", ["A1", "A2"])
+def test_resident_outside_the_fast_range_matches_plain(cuda_device, scale, form):
+    """Operands below 2^-94 or quotients' denominators past 2^31: those warps
+    take div_rn_exact through shared memory, the others the fast path."""
+    shape = (2, 150, 260)
+    scales = torch.tensor([scale, 1.0])
+    k, p, _ = _resident_call(form, shape, cuda_device, 0.0, seed=10, scales=scales)
+    torch.cuda.synchronize()
+    for a, b in zip(k[:3], p[:3]):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(k[0]).all())
+    assert tv_cuda.barrier_error() == 0
+
+
+def test_resident_occupancy_spills_and_exact_operators(cuda_device):
+    """The resident kernel gets the blocks an SM its __launch_bounds__
+    names, ptxas reports no spill in any of its four forms, and its exact quotient
+    and root are IEEE's on a sample (chip_smoke.py checks every root)."""
+    from semiblind_tv_tpu_torch._build import kernel_usage, load_library
+
+    occ = tv_cuda.resident_occupancy(cuda_device)
+    assert occ["blocks_per_sm"] == occ["launch_bounds_blocks"]
+    assert occ["registers"] * occ["threads"] * occ["blocks_per_sm"] <= 65536
+    usage = kernel_usage("resident_")
+    assert sorted(usage) == ["resident_prox", "resident_prox_walk", "resident_step",
+                             "resident_step_walk"], usage
+    assert all(u["spill_stores"] == u["spill_loads"] == 0 for u in usage.values()), usage
+    geo = tv_cuda.resident_geometry(16, 512, 512, tv_cuda.resident_capacity(cuda_device))
+    assert geo.grid <= occ["blocks_per_sm"] * occ["sms"]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    m = 1 << 22
+    a = (torch.randint(0, 0x7F800000, (m,), generator=gen, device=cuda_device,
+                       dtype=torch.int32).view(torch.float32))
+    b = torch.cat([torch.exp2(torch.rand(m // 2, generator=gen, device=cuda_device) * 40 - 4),
+                   a[torch.randperm(m // 2, generator=gen, device=cuda_device)]])
+    zero = torch.zeros(2, device=cuda_device)
+    a = torch.cat([a, -a[:1000], zero, -zero])   # −0 keeps its sign under '/'
+    b = torch.cat([b, b[:1000], zero[:1], b[:1], b[:1], -b[:1]])
+    q, r = torch.empty_like(a), torch.empty_like(a)
+    lib = load_library()
+    assert lib.sb_resident_exact_ops(a.data_ptr(), b.data_ptr(), q.data_ptr(), r.data_ptr(),
+                                     a.numel(), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    want = a / b
+    same = (q.view(torch.int32) == want.view(torch.int32)) | (torch.isnan(q) & torch.isnan(want))
+    assert bool(same.all())
+    pos = a >= 0
+    assert torch.equal(r[pos].view(torch.int32), torch.sqrt(a[pos]).view(torch.int32))
+
+
+def test_resident_wrapper_raises_on_a_refused_launch(cuda_device, monkeypatch):
+    """A grid larger than the card holds at once is refused by the
+    cooperative launch: the wrapper raises, nothing falls back, and the
+    next call runs."""
+    cap = tv_cuda.resident_capacity(cuda_device)
+    T = tv_cuda.resident_geometry(1, 512, 512, cap).tiles
+    C = cap // T + 1
+    g = torch.rand((C, 512, 512), device=cuda_device)
+    geo = tv_cuda.ResidentGeometry((tv_cuda.TILE_ROWS, tv_cuda.TILE_COLS), T, C, 1, C * T, 1)
+    before = tv_cuda.LAUNCHES
+    with monkeypatch.context() as m:
+        m.setattr(tv_cuda, "resident_geometry", lambda *args: geo)
+        with pytest.raises(RuntimeError):
+            tv_cuda.chambolle_prox_cuda(g, torch.tensor(0.5, device=cuda_device), 5)
+    assert tv_cuda.LAUNCHES == before
+    f, _ = tv_cuda.chambolle_prox_cuda(g[:1], torch.tensor(0.5, device=cuda_device), 5, tol=0.0)
+    pf, _ = tv_cuda.chambolle_prox_plain(g[:1], torch.tensor(0.5, device=cuda_device), 5, tol=0.0)
+    assert torch.equal(f, pf) and tv_cuda.barrier_error() == 0
+
+
 @pytest.mark.parametrize("shape", [(1, 64, 64), (3, 48, 40), (2, 17, 33)])
 def test_kernel_a_warm_matches_plain(cuda_device, shape):
-    rng = np.random.default_rng(0)
-    g = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(cuda_device)
-    px0, py0 = _field(rng, shape, cuda_device), _field(rng, shape, cuda_device)
-    lam = torch.tensor(20.0, device=cuda_device)
-    before = tv_cuda.LAUNCHES
-    f, st = tv_cuda.chambolle_prox_cuda(g, lam, 10, tol=0.0, duals=(px0, py0))
-    pf, pst = tv_cuda.chambolle_prox_plain(g, lam, 10, tol=0.0, duals=(px0, py0))
+    k, p, launches = _resident_call("A1", shape, cuda_device, 0.0)
     torch.cuda.synchronize()
-    assert tv_cuda.LAUNCHES == before + 1
-    assert _rel_err(f, pf) <= REL
-    assert _rel_err(st.px, pst.px) <= REL and _rel_err(st.py, pst.py) <= REL
-    assert torch.equal(st.iters.cpu(), pst.iters.cpu())
+    assert launches == 1
+    _assert_resident_matches("A1", k, p)
 
 
 def test_kernel_a_fresh_early_exit_matches_plain(cuda_device):
     yy, xx = np.mgrid[0:64, 0:64]
     base = (np.sin(xx / 5.0) + np.cos(yy / 7.0)).astype(np.float32)
     g = torch.from_numpy(np.stack([base * s for s in (1e-5, 1e-4, 1.0)])).to(cuda_device)
-    f, st = tv_cuda.chambolle_prox_cuda(g, 0.5, 25, return_state=False)
-    pf, pst = tv_cuda.chambolle_prox_plain(g, 0.5, 25, return_state=False)
+    lam = torch.tensor(0.5, device=cuda_device)
+    f, st = tv_cuda.chambolle_prox_cuda(g, lam, 25, return_state=False)
+    pf, pst = tv_cuda.chambolle_prox_plain(g, lam, 25, return_state=False)
     torch.cuda.synchronize()
     assert torch.equal(st.iters.cpu(), pst.iters.cpu())
     assert st.iters[0] < 25 and st.iters[2] == 25
-    assert _rel_err(f, pf) <= REL
+    assert torch.equal(f, pf)
     assert float(st.px.abs().max()) == 0.0
 
 
@@ -107,11 +277,9 @@ def test_kernel_a_fresh_early_exit_matches_plain(cuda_device):
 def test_kernel_b_matches_plain(cuda_device, positivity):
     rng = np.random.default_rng(1)
     shape = (2, 48, 40)
-    x = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(cuda_device)
-    prox = x + _field(rng, shape, cuda_device, 0.1)
-    grad = _field(rng, shape, cuda_device, 0.01)
+    x, prox, grad = _step_fields(rng, shape, cuda_device)
     z = _field(rng, shape, cuda_device)
-    args = tuple(torch.tensor(v, device=cuda_device) for v in (1.9, 2.0, 0.02))
+    args = tuple(torch.tensor(v, device=cuda_device) for v in _STEP_SCALARS)
     before = fused_step_cuda.LAUNCHES
     k = fused_step_cuda.myula_prox_tv(x, prox, grad, z, *args, 25, tol=0.0,
                                       positivity=positivity)
@@ -119,8 +287,7 @@ def test_kernel_b_matches_plain(cuda_device, positivity):
                                             positivity=positivity)
     torch.cuda.synchronize()
     assert fused_step_cuda.LAUNCHES == before + 1
-    for a, b in zip(k, p):
-        assert _rel_err(a, b) <= REL
+    _assert_resident_matches("B", k, p)
 
 
 @pytest.mark.parametrize("shape", [(1, 200, 300), (2, 130, 70), (3, 75, 64)])
@@ -263,11 +430,9 @@ def _seeds(rng, B, dev):
 @pytest.mark.parametrize("shape,positivity", [((2, 48, 40), True), ((1, 17, 33), False)])
 def test_kernel_c_matches_plain(cuda_device, shape, positivity):
     rng = np.random.default_rng(4)
-    x = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(cuda_device)
-    prox = x + _field(rng, shape, cuda_device, 0.1)
-    grad = _field(rng, shape, cuda_device, 0.01)
+    x, prox, grad = _step_fields(rng, shape, cuda_device)
     seeds = _seeds(rng, shape[0], cuda_device)
-    args = tuple(torch.tensor(v, device=cuda_device) for v in (1.9, 2.0, 0.02))
+    args = tuple(torch.tensor(v, device=cuda_device) for v in _STEP_SCALARS)
     before = fused_step_cuda.RNG_LAUNCHES
     k = fused_step_cuda.myula_prox_tv_rng(x, prox, grad, seeds, *args, 25, tol=0.0,
                                           positivity=positivity)
@@ -275,8 +440,7 @@ def test_kernel_c_matches_plain(cuda_device, shape, positivity):
                                                 positivity=positivity)
     torch.cuda.synchronize()
     assert fused_step_cuda.RNG_LAUNCHES == before + 1
-    for a, b in zip(k, p):
-        assert _rel_err(a, b) <= REL
+    _assert_resident_matches("C", k, p)
     # x = prox = grad = 0, γ = 0.5, no positivity: xn is the raw noise field
     zero = torch.zeros_like(x)
     xn = fused_step_cuda.myula_prox_tv_rng(zero, zero, zero, seeds, 0.5, 1.0, 0.02, 1,
