@@ -4,14 +4,16 @@
 Pipeline (run_Gaussian_demo.m:91-301):
   load image → build problem (observation synthesis, Lipschitz, MYULA steps)
   → SAPG estimation of (theta, PSF params, sigma²)
-  → SALSA MAP solve with the plugged-in EB estimates
-  → MSE(dB)/SSIM/SNR/PSNR vs ground truth → results JSON
+  → SALSA (or FISTA) MAP solve with the plugged-in EB estimates
+  → MSE(dB)/SSIM/SNR/PSNR vs ground truth → results JSON, traces.npz
+    (+ optional trace plots)
 
 Usage:
   python -m semiblind_tv_tpu_torch.cli.run_demo --psf gaussian --size 512 \
       --samples 20000 --warmup 15000 --chains 1 --out results/gaussian
   python -m semiblind_tv_tpu_torch.cli.run_demo --psf gaussian --no-fix-w \
       --image synthetic --size 2048 --samples 2000 --warmup 1500 --sigma-log-scale
+  python -m semiblind_tv_tpu_torch.cli.run_demo --solver fista --out results/fista --plots
 
 Above 512² the SAPG step and both proxes run the temporally-blocked
 kernels (ops/tv_blocked_cuda.py, ops/fused_step_cuda.myula_prox_tv_blocked).
@@ -20,8 +22,15 @@ with ≤2 chains, the step as kernel D); `--in-kernel-rng` draws the Langevin
 noise inside the step kernel (kernel C up to 512², the blocked kernel's
 seeds form at ≥2048²).
 
+`--solver fista` solves the MAP problem by TV-FISTA (solvers/fista.py)
+instead of SALSA.  `--out DIR` writes results.json and traces.npz
+(runtime/checkpoint.save_results); `--plots` adds the reference's figure set
+there and needs matplotlib.  A long run resumes from a checkpoint through
+`run_demo(cfg, image, checkpoint_every=N, checkpoint_path=PATH)`.
+
 `--device` defaults to `cuda`; a CUDA request on a machine without a card
-raises.  Flags of the JAX CLI that are not ported yet are absent.
+raises.  Flags of the JAX CLI that are not ported yet (`--mesh`,
+`--space-mesh`) are absent.
 """
 from __future__ import annotations
 
@@ -36,13 +45,15 @@ import numpy as np
 import torch
 
 from semiblind_tv_tpu_torch.metrics import metrics
+from semiblind_tv_tpu_torch.runtime.checkpoint import save_results
 from semiblind_tv_tpu_torch.runtime.config import preset
 from semiblind_tv_tpu_torch.runtime.problem import build_problem, resolve_device
 from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
+from semiblind_tv_tpu_torch.solvers.fista import fista_tv
 from semiblind_tv_tpu_torch.solvers.salsa import salsa_tv
 from semiblind_tv_tpu_torch.utils.images import load_image
 
-__all__ = ["run_demo", "main", "resolve_device"]
+__all__ = ["run_demo", "save_plots", "main", "resolve_device"]
 
 
 def run_demo(
@@ -54,9 +65,19 @@ def run_demo(
     obs_noise=None,
     noise: Optional[Callable] = None,
     plain: bool = False,
+    solver: str = "salsa",
+    checkpoint_every: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
 ):
     """Run the full experiment; returns (results dict, SAPGResult,
-    SALSAResult, Problem).
+    SALSAResult or FISTAResult, Problem).
+
+    solver: 'salsa' (reference demos) or 'fista' (reference my_deblur_fista
+    legacy path) for the MAP solve.
+    checkpoint_every/checkpoint_path: run_sapg's mid-run checkpointing; a
+    second call with the same checkpoint_path resumes the SAPG phase where
+    the checkpoint left it (without the warm-up) and then solves the MAP
+    problem.
 
     One torch.Generator on `device`, seeded from cfg.seed, draws the
     observation noise and then the chains' noise.  `obs_noise` (a
@@ -65,6 +86,8 @@ def run_demo(
     the JAX package's draws through them.  plain=True runs the kernels'
     plain PyTorch versions on any device (the kernel-vs-plain comparison
     on the card)."""
+    if solver not in ("salsa", "fista"):
+        raise ValueError(f"solver must be 'salsa' or 'fista', got {solver!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
@@ -72,7 +95,8 @@ def run_demo(
 
     t0 = time.perf_counter()
     sapg = run_sapg(problem, gen, n_chains=n_chains, noise=noise,
-                    route="plain" if plain else None)
+                    route="plain" if plain else None,
+                    checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path)
     sapg_time = time.perf_counter() - t0
 
     theta_EB = sapg.theta_EB
@@ -85,19 +109,33 @@ def run_demo(
     # tau = theta_EB * sigma2_EB, mu = theta_EB/10
     H_EB = problem.blur.otf_host(problem.model.kernel(params_EB))
     t0 = time.perf_counter()
-    salsa = salsa_tv(
-        problem.y,
-        H_EB,
-        tau=theta_EB * sigma2_EB,
-        mu=theta_EB * cfg.salsa.mu_factor,
-        blur=problem.blur,
-        max_iter=cfg.salsa.outer_iters,
-        tol=cfg.salsa.tol,
-        tv_iters=cfg.salsa.tv_iters,
-        stop_criterion=cfg.salsa.stop_criterion,
-        x_true=problem.x_true,
-        prox_route="plain" if plain else None,
-    )
+    if solver == "fista":
+        salsa = fista_tv(
+            problem.y,
+            H_EB,
+            tau=theta_EB * sigma2_EB,
+            blur=problem.blur,
+            tv_iters=cfg.salsa.tv_iters,
+            max_iter=cfg.salsa.outer_iters,
+            tol=cfg.salsa.tol,
+            x_true=problem.x_true,
+            prox_route="plain" if plain else None,
+        )
+        salsa.op_counts = {"A": 2 * salsa.n_iters, "AT": salsa.n_iters}
+    else:
+        salsa = salsa_tv(
+            problem.y,
+            H_EB,
+            tau=theta_EB * sigma2_EB,
+            mu=theta_EB * cfg.salsa.mu_factor,
+            blur=problem.blur,
+            max_iter=cfg.salsa.outer_iters,
+            tol=cfg.salsa.tol,
+            tv_iters=cfg.salsa.tv_iters,
+            stop_criterion=cfg.salsa.stop_criterion,
+            x_true=problem.x_true,
+            prox_route="plain" if plain else None,
+        )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     salsa_time = time.perf_counter() - t0
@@ -132,6 +170,65 @@ def run_demo(
     return results, sapg, salsa, problem
 
 
+def _matplotlib():
+    """matplotlib with the Agg backend; a clear error where it is absent."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise RuntimeError("--plots needs matplotlib, which is not installed") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def save_plots(out_dir, results, sapg, salsa, problem):
+    """Reproduce the reference figure set (run_Gaussian_demo.m:248-301):
+    trace_<name>.png for σ², θ, the PSF parameters, logπ and the PSF error,
+    img_<name>.png for x, y, the MAP image and, with posterior moments, the
+    posterior mean and standard deviation of chain 0."""
+    plt = _matplotlib()
+    os.makedirs(out_dir, exist_ok=True)
+
+    def trace_fig(name, trace, true_val=None, ylabel=None):
+        fig, ax = plt.subplots(figsize=(6, 4))
+        ax.plot(trace, "b", lw=1.2, label=f"${name}_n$")
+        if true_val is not None:
+            ax.axhline(true_val, color="r", ls="--", label=f"${name}" + r"_{true}$")
+        ax.set_xlabel("Iteration (n)")
+        ax.set_ylabel(ylabel or name)
+        ax.grid(True)
+        ax.legend()
+        fig.tight_layout()
+        fig.savefig(os.path.join(out_dir, f"trace_{name}.png"), dpi=120)
+        plt.close(fig)
+
+    trace_fig("sigma2", sapg.sigma2s, results["sigma2_true"])
+    trace_fig("theta", sapg.thetas)
+    for pname, tr in sapg.psf_param_traces.items():
+        trace_fig(pname, tr, results["true_psf_params"].get(pname))
+    trace_fig("logPi", sapg.logPiTrace)
+    trace_fig("err_psf", sapg.err_psf)
+
+    panels = [
+        ("x", problem.x_true.cpu().numpy()),
+        ("y", problem.y.cpu().numpy()),
+        ("xMAP", salsa.x),
+    ]
+    if sapg.posterior_mean is not None:
+        # the reference's commented-out figmean panel (run_Gaussian_demo.m:291-295)
+        panels.append(("posterior_mean", sapg.posterior_mean[0]))
+        panels.append(("posterior_std", np.sqrt(sapg.posterior_var[0])))
+    for title, img in panels:
+        fig, ax = plt.subplots(figsize=(6, 6))
+        ax.imshow(img, cmap="gray")
+        ax.set_axis_off()
+        ax.set_title(title)
+        fig.tight_layout()
+        fig.savefig(os.path.join(out_dir, f"img_{title}.png"), dpi=120)
+        plt.close(fig)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--psf", choices=["gaussian", "laplace", "moffat"], default="gaussian")
@@ -145,7 +242,12 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--f64", action="store_true",
                    help="float64, with --device cpu (the CUDA kernels are float32)")
-    p.add_argument("--out", default=None, help="directory for results.json")
+    p.add_argument("--out", default=None, help="directory for results.json and traces.npz")
+    p.add_argument("--plots", action="store_true",
+                   help="also write the reference's trace and image figures to --out "
+                        "(needs matplotlib)")
+    p.add_argument("--solver", choices=["salsa", "fista"], default="salsa",
+                   help="MAP solver: salsa (demos) or fista (legacy my_deblur_fista)")
     p.add_argument("--no-fix-w", action="store_true",
                    help="gaussian: estimate w1/w2 instead of pinning to truth")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
@@ -164,6 +266,10 @@ def main(argv=None):
                         "seeds (an extension: a different, equally valid noise "
                         "realisation; off on the CPU and at 1024²)")
     args = p.parse_args(argv)
+    if args.plots:
+        if args.out is None:
+            p.error("--plots writes its figures to --out DIR")
+        _matplotlib()  # fail before the run, not after it
 
     kwargs = {}
     if args.psf == "gaussian" and args.no_fix_w:
@@ -195,14 +301,17 @@ def main(argv=None):
 
     dtype = torch.float64 if args.f64 else torch.float32
     image = load_image(args.image, args.image_dir, size=args.size)
-    results, _, _, _ = run_demo(
-        cfg, image, n_chains=args.chains, dtype=dtype, device=args.device
+    results, sapg, salsa, problem = run_demo(
+        cfg, image, n_chains=args.chains, dtype=dtype, device=args.device, solver=args.solver
     )
     print(json.dumps(results, indent=2))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "results.json"), "w") as f:
             json.dump(results, f, indent=2)
+        save_results(os.path.join(args.out, "traces.npz"), sapg, salsa)
+        if args.plots:
+            save_plots(args.out, results, sapg, salsa, problem)
     return results
 
 

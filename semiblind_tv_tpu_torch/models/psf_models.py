@@ -3,7 +3,7 @@
 
 One generic SAPG estimator consumes a `PsfModel` (kernel + analytic
 parameter gradients over a dict of scalar parameters) and the per-parameter
-SA policy of each `ParamSpec`.  The isotropic family is not ported yet.
+SA policy of each `ParamSpec`.
 """
 from __future__ import annotations
 
@@ -14,7 +14,10 @@ import torch
 
 from semiblind_tv_tpu_torch.ops import psf as psf_ops
 
-__all__ = ["ParamSpec", "PsfModel", "GaussianPsfModel", "LaplacePsfModel", "MoffatPsfModel"]
+__all__ = [
+    "ParamSpec", "PsfModel", "GaussianPsfModel", "IsotropicGaussianPsfModel",
+    "LaplacePsfModel", "MoffatPsfModel",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +94,33 @@ class LaplacePsfModel(PsfModel):
     def kernel_and_grads(self, params):
         k, db = psf_ops.laplace_kernel_grads(self.size, params["b"], self.dtype)
         return k, {"b": db}
+
+
+class IsotropicGaussianPsfModel(PsfModel):
+    """Isotropic Gaussian with a single unknown width `w` (w1 = w2 = w).
+
+    Capability of the reference's SIAM 4.2.1 experiment
+    (`SALSA/run_deblur_tv.m` — known-shape kernel, unknown width `to`);
+    that script is broken as shipped (its `fftkernel_f`/`dif_fftkernel_f`
+    have no files in the repo), so this family reconstructs the intended
+    model: dk/dw = ∂k/∂w1 + ∂k/∂w2 evaluated at w1 = w2 = w.
+    """
+
+    name = "isotropic_gaussian"
+    param_names = ("w",)
+
+    def __init__(self, size: int, phi: float = 0.0, dtype=torch.float32):
+        super().__init__(size, dtype)
+        self.phi = phi
+
+    def kernel(self, params):
+        w = params["w"]
+        return psf_ops.gaussian_kernel(self.size, w, w, self.phi, self.dtype)
+
+    def kernel_and_grads(self, params):
+        w = params["w"]
+        k, dw1, dw2 = psf_ops.gaussian_kernel_grads(self.size, w, w, self.phi, self.dtype)
+        return k, {"w": dw1 + dw2}
 
 
 class MoffatPsfModel(PsfModel):

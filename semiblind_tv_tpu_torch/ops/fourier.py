@@ -28,6 +28,7 @@ import torch
 
 __all__ = [
     "dft_factors",
+    "otf_fft",
     "otf_rfft",
     "rfft_weights",
     "parseval_dot",
@@ -59,6 +60,15 @@ def dft_factors(size: int, shape, dtype=torch.complex64, device=None):
     Fx = torch.from_numpy(np.exp(1j * ang_x).astype(np_dtype)).to(device)
     Fy = torch.from_numpy(np.exp(1j * ang_y).astype(np_dtype)).to(device)
     return Fx, Fy
+
+
+def otf_fft(kernel: torch.Tensor, shape) -> torch.Tensor:
+    """Full-spectrum OTF via corner-pad + fft2 (parity path with resize.m)."""
+    M, N = shape
+    s = kernel.shape[-1]
+    padded = torch.zeros((M, N), dtype=kernel.dtype, device=kernel.device)
+    padded[:s, :s] = kernel
+    return torch.fft.fft2(padded)
 
 
 def otf_rfft(kernel: torch.Tensor, shape, factors=None) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Configuration and problem assembly (port of semiblind_tv_tpu.runtime)."""
+"""Configuration, problem assembly, checkpoints and observability (port of
+semiblind_tv_tpu.runtime)."""
 from semiblind_tv_tpu_torch.runtime.config import (  # noqa: F401
     DemoConfig,
     SALSAConfig,

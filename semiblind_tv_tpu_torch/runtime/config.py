@@ -196,8 +196,7 @@ def isotropic_preset(
 ) -> DemoConfig:
     """SIAM 4.2.1 capability: isotropic Gaussian with one unknown width,
     Algorithm-1 style SAPG (log-theta, no positivity projection), sigma²
-    pinned.  The port has the configuration and the log-theta updates but
-    not yet its PSF family (`build_problem` raises)."""
+    pinned."""
     return DemoConfig(
         psf="isotropic_gaussian",
         theta=ParamSpec("theta", init=0.01, box=(1e-3, 1.0), step_scale=1.0, sign=+1.0),

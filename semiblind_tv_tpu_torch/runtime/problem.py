@@ -21,6 +21,7 @@ import torch
 
 from semiblind_tv_tpu_torch.models.psf_models import (
     GaussianPsfModel,
+    IsotropicGaussianPsfModel,
     LaplacePsfModel,
     MoffatPsfModel,
     ParamSpec,
@@ -44,7 +45,7 @@ def make_psf_model(cfg: DemoConfig, dtype=torch.float32) -> PsfModel:
     if cfg.psf == "moffat":
         return MoffatPsfModel(cfg.psf_size, dtype)
     if cfg.psf == "isotropic_gaussian":
-        raise NotImplementedError("the isotropic Gaussian family is not ported yet")
+        return IsotropicGaussianPsfModel(cfg.psf_size, cfg.phi, dtype)
     raise ValueError(f"unknown psf family: {cfg.psf!r}")
 
 

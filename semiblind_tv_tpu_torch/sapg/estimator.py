@@ -36,7 +36,17 @@ noise field.
 Options ported from the JAX package: sigma_log_scale, psf_log_scale and
 theta_log_scale (Algorithm-1: SA updates in log space, clipped there; the
 θ EB estimate is then the geometric mean of the window), fft_mode,
-fuse_dft, fuse_irdft and in_kernel_rng.
+fuse_dft, fuse_irdft, in_kernel_rng and track_posterior_moments (Welford's
+running posterior mean and variance of the post-burn-in samples, updated
+in place from the step's new sample, so on every kernel route).
+
+Checkpoint and resume (run_sapg's checkpoint_every/checkpoint_path, npz
+only): the main scan runs in segments of checkpoint_every iterations and
+the carry, the traces so far, the warm-up trace and the state of the
+torch.Generator that draws the noise are saved after each one; a run that
+finds a checkpoint at checkpoint_path skips the warm-up and resumes there,
+on the same trajectory as an uninterrupted run.  A segment whose traces go
+non-finite is rerun from the last checkpoint (run_segmented_scan).
 
 Chains live on the leading dimension; the per-chain SA statistics are
 averaged before the hyperparameter update.  θ, σ² and the PSF parameters
@@ -54,6 +64,7 @@ noise realisation differs from the default's, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -70,6 +81,7 @@ from semiblind_tv_tpu_torch.ops.fused_step_cuda import (
 from semiblind_tv_tpu_torch.ops.tv import tv_norm
 from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_prox_blocked
 from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain
+from semiblind_tv_tpu_torch.runtime.checkpoint import load_checkpoint_arrays, save_checkpoint_arrays
 from semiblind_tv_tpu_torch.runtime.problem import Problem
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
@@ -86,6 +98,7 @@ __all__ = [
     "generator_seeds",
     "resolve_step_route",
     "resolve_prox_route",
+    "FRESH_PROX",
     "resolve_fuse_dft",
     "resolve_in_kernel_rng",
 ]
@@ -122,6 +135,8 @@ class SAPGResult:
     X_last: np.ndarray              # (n_chains, M, N)
     last_samp: int
     exec_time: float
+    posterior_mean: Optional[np.ndarray] = None  # Welford over post-burn-in
+    posterior_var: Optional[np.ndarray] = None   # samples (per chain)
 
     @property
     def last_theta(self):
@@ -167,9 +182,6 @@ def generator_seeds(generator: torch.Generator, device) -> Callable:
     return draw
 
 
-_NOT_PORTED = ("track_posterior_moments",)
-
-
 def resolve_step_route(shape, device) -> str:
     """The spatial segment's kernel for an (M, N) image on `device`, by
     the JAX package's size ladder (resolve_use_fused / resolve_use_tiled_fused
@@ -191,6 +203,11 @@ def resolve_prox_route(shape, device) -> str:
     if torch.device(device).type != "cuda":
         return "plain"
     return {None: "A2", "tiled": "F", "streamed": "H"}[blocked_rung(shape)]
+
+
+# the fresh-dual prox of each route resolve_prox_route names
+FRESH_PROX = {"plain": chambolle_prox_plain, "A2": chambolle_prox_cuda,
+              "F": chambolle_prox_blocked, "H": chambolle_prox_blocked}
 
 
 def resolve_fuse_dft(sapg, route: str, fft_mode: str, shape, B: int) -> bool:
@@ -222,9 +239,6 @@ def resolve_in_kernel_rng(sapg, route: str, fft_mode: str, shape, B: int) -> boo
 
 def _check_ported(cfg) -> None:
     sapg = cfg.sapg
-    for name in _NOT_PORTED:
-        if getattr(sapg, name):
-            raise NotImplementedError(f"SAPGConfig.{name} is not ported yet")
     if sapg.fft_mode not in (None, "fft", "dft"):
         raise ValueError(f"fft_mode must be 'fft' or 'dft', got {sapg.fft_mode!r}")
     if sapg.fft_precision not in (None, "highest"):
@@ -243,9 +257,11 @@ def make_general_sapg_step(
     and Z the step's (B, M, N) standard-normal field, or its (B, 2) int32
     seeds where aux["in_kernel_rng"](B) holds.
 
-    carry = (X, Xhat, prox, theta, sigma2, params); the step returns
-    (carry, trace) with trace a dict of 0-d device tensors.  `route`
-    overrides resolve_step_route ('plain', 'B', 'G' or 'I'); with 'plain'
+    carry = (X, Xhat, prox, theta, sigma2, params) with, under
+    track_posterior_moments, a seventh entry extra = dict(pm_mean, pm_m2,
+    pm_count); the step returns (carry, trace) with trace a dict of 0-d
+    device tensors.  `route` overrides resolve_step_route ('plain', 'B',
+    'G' or 'I'); with 'plain'
     the prox takes its plain version too — the chip smoke test compares the
     kernels with the plain versions on the card this way."""
     _check_ported(cfg)
@@ -296,8 +312,7 @@ def make_general_sapg_step(
 
     tv_b = tv_norm
 
-    prox_fn = {"plain": chambolle_prox_plain, "A2": chambolle_prox_cuda,
-               "F": chambolle_prox_blocked, "H": chambolle_prox_blocked}[prox_route]
+    prox_fn = FRESH_PROX[prox_route]
 
     def prox_b(X, lam_theta):
         # the fresh form: the SAPG prox starts from zero duals and discards them
@@ -358,10 +373,34 @@ def make_general_sapg_step(
     params0_c = {k: as_t(v) for k, v in cfg.init_psf_params().items()}
     H0_c = blur.otf_host(model.kernel(params0_c))
     zero = torch.zeros((), dtype=dtype, device=device)
+    burn_in = sapg.burn_in_resolved
+    work = {}  # two spare fields of the Welford update, kept across steps
+
+    def welford(extra, Xn, ii):
+        """Welford's running posterior mean and M2 over the samples of
+        ii > burn_in (the reference's commented-out weldford intent), in
+        place, on two spare fields kept across steps.  The JAX step
+        adds take·dX with take = 0 up to burn-in, which leaves the sums
+        bit-for-bit as they are; ii is a host int here, so that is a skip."""
+        if ii <= burn_in:
+            return extra
+        mean, m2 = extra["pm_mean"], extra["pm_m2"]
+        cnt = extra["pm_count"] + 1.0
+        key = (tuple(Xn.shape), Xn.dtype, Xn.device)
+        if key not in work:
+            work.clear()
+            work[key] = (torch.empty_like(Xn), torch.empty_like(Xn))
+        dX, tmp = work[key]
+        torch.sub(Xn, mean, out=dX)
+        torch.div(dX, cnt, out=tmp)
+        mean.add_(tmp)                      # mean += dX / cnt
+        torch.sub(Xn, mean, out=tmp)
+        m2.addcmul_(dX, tmp)                # m2 += dX · (Xn − mean_new)
+        return dict(pm_mean=mean, pm_m2=m2, pm_count=cnt)
 
     def step(carry, ii, consts, Z):
         yhat, gam, lam = consts["yhat"], consts["gam"], consts["lam"]
-        X, Xhat, prox, theta, sigma2, params = carry
+        X, Xhat, prox, theta, sigma2, params = carry[:6]
         H, dHs = (H0_c, {}) if all_fixed else otfs(params)
         Rhat = H[None] * Xhat - yhat[None]
         # prox lag: the MYULA update uses the prox of the previous iterate,
@@ -433,7 +472,10 @@ def make_general_sapg_step(
             **{f"G_{n}": G_p.get(n, zero) for n in psf_names},
             **{n: params_n[n] for n in psf_names},
         )
-        return (Xn, Xhatn, proxn, theta_n, sigma_n, params_n), trace
+        carry_n = (Xn, Xhatn, proxn, theta_n, sigma_n, params_n)
+        if sapg.track_posterior_moments:
+            carry_n += (welford(carry[6], Xn, ii),)
+        return carry_n, trace
 
     # --- warm-up step: MYULA at the fixed initial hyperparameters ---------
     # (SAPG_algorithm_Guassian.m:67-93), positivity always on (the JAX
@@ -499,28 +541,170 @@ def make_sapg_step(problem: Problem, n_chains: int, route: Optional[str] = None)
     return step, aux
 
 
+def _host(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def _merge_traces(seg_traces):
+    if len(seg_traces) == 1:
+        return seg_traces[0]
+    return {k: np.concatenate([tr[k] for tr in seg_traces]) for k in seg_traces[0]}
+
+
+def _save_checkpoint(path: str, carry, done_iters: int, seg_traces, logpi_wu, logpi0,
+                     generator: Optional[torch.Generator] = None,
+                     backend: str = "npz") -> None:
+    """Persist (carry, completed-iteration count, trace segments, warm-up
+    trace, noise state).
+
+    The JAX package drops Xhat and recomputes it with blur.rfft (its TPU
+    could not copy complex buffers to the host); here Xhat is kept as its
+    real and imaginary planes, because on route D it comes from the
+    kernel's own forward transform, which differs from blur.rfft in the
+    last bits.  The noise state is the torch.Generator's get_state() (a
+    uint8 array: seed and offset), saved when the run draws its noise from
+    `generator`.  The warm-up trace (logpi_wu, logpi0) rides along so a
+    resumed run can skip the warm-up phase entirely (15k iterations — 43%
+    of the reference budget)."""
+    X, Xhat, prox, theta, sigma2, params = carry[:6]
+    extra = carry[6] if len(carry) > 6 else {}
+    arrays = {f"trace/{k}": v for k, v in _merge_traces(seg_traces).items()}
+    arrays.update(
+        X=_host(X),
+        Xhat_re=_host(Xhat.real),
+        Xhat_im=_host(Xhat.imag),
+        prox=_host(prox),
+        theta=_host(theta),
+        sigma2=_host(sigma2),
+        done_iters=np.asarray(done_iters),
+        logpi_wu=_host(logpi_wu),
+        logpi0=_host(logpi0),
+    )
+    if generator is not None:
+        arrays["generator_state"] = generator.get_state().numpy()
+    for k, v in params.items():
+        arrays[f"param/{k}"] = _host(v)
+    for k, v in extra.items():
+        arrays[f"extra/{k}"] = _host(v)
+    save_checkpoint_arrays(path, arrays, backend=backend)
+
+
+def _restore_checkpoint(path: str, device, backend: Optional[str] = None, rfft=None,
+                        generator: Optional[torch.Generator] = None):
+    """Inverse of _save_checkpoint; returns
+    (carry, done_iters, [trace dict], logpi_wu, logpi0).
+
+    The tensors land on `device`; a saved generator state is set on
+    `generator` (a generator of the problem's device; never reseeded, which
+    would change the stream).  `rfft` (the run's blur.rfft) recomputes Xhat
+    only for a file without its planes."""
+    z = load_checkpoint_arrays(path, backend=backend)
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    X = t(z["X"])
+    Xhat = torch.complex(t(z["Xhat_re"]), t(z["Xhat_im"])) if "Xhat_re" in z else rfft(X)
+    params = {k[len("param/"):]: t(z[k]) for k in z if k.startswith("param/")}
+    traces = {k[len("trace/"):]: z[k] for k in z if k.startswith("trace/")}
+    extra = {k[len("extra/"):]: float(z[k]) if z[k].ndim == 0 else t(z[k])
+             for k in z if k.startswith("extra/")}
+    if generator is not None and "generator_state" in z:
+        generator.set_state(torch.from_numpy(z["generator_state"]))
+    carry = (X, Xhat, t(z["prox"]), t(z["theta"]), t(z["sigma2"]), params)
+    if extra:
+        carry += (extra,)
+    return carry, int(z["done_iters"]), [traces], z["logpi_wu"], z["logpi0"]
+
+
 def _traces_finite(tr) -> bool:
+    """Fail-fast divergence check on a segment's scalar traces."""
     for name in ("logPi", "theta", "sigma2"):
         if name in tr and not np.all(np.isfinite(tr[name])):
             return False
     return True
 
 
-def run_segmented_scan(scan_seg, carry, samples: int, *, nan_guard: bool = True):
-    """Drive the main SAPG scan over ii = 2..samples with the fail-fast NaN
-    guard: `scan_seg(carry, iis) -> (carry, host trace dict)`.  Raises
-    SAPGDivergenceError when the logPi/theta/sigma2 traces go non-finite.
-    (Checkpointing and restore are not ported yet.)  Returns (carry,
-    [trace dict])."""
+def run_segmented_scan(
+    scan_seg,
+    carry,
+    samples: int,
+    *,
+    checkpoint_every: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    save_fn=None,
+    restore_fn=None,
+    fault_hook=None,
+    nan_guard: bool = True,
+    max_restores: int = 1,
+):
+    """Drive the segmented main SAPG scan over ii = 2..samples with
+    checkpointing and supervision; `scan_seg(carry, iis) -> (carry, host
+    trace dict)` runs the iterations of the range iis.
+
+      * segments the scan every `checkpoint_every` iterations and calls
+        `save_fn(carry, done_iters, seg_traces)` after each segment;
+      * resumes from an existing checkpoint via
+        `restore_fn() -> (carry, done_iters, [trace dicts])`;
+      * fail-fast NaN guard: if a segment's logPi/theta/sigma2 traces go
+        non-finite (e.g. a transient hardware fault corrupted the carry),
+        auto-restores from the last good checkpoint and re-runs, up to
+        `max_restores` times, then raises SAPGDivergenceError;
+      * `fault_hook(seg_idx, carry) -> carry` is the fault-injection point
+        (called before each segment).
+
+    Returns (carry, seg_traces) where seg_traces is a list of host-side
+    trace dicts (one per completed segment, resumed segments included).
+    Each segment reads its traces back to the host once, so checkpointing
+    adds one synchronisation a segment and none a step."""
     seg_traces = []
-    if samples >= 2:
-        carry, tr = scan_seg(carry, range(2, samples + 1))
+    start_ii = 2
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        carry, done, saved = restore_fn()
+        start_ii += done
+        seg_traces.extend(saved)
+
+    if checkpoint_every is None:
+        if start_ii <= samples:
+            carry, tr = scan_seg(carry, range(start_ii, samples + 1))
+            if nan_guard and not _traces_finite(tr):
+                raise SAPGDivergenceError(
+                    f"non-finite SAPG traces in iterations [{start_ii}, {samples}] "
+                    "(no checkpoint to restore from)"
+                )
+            seg_traces.append(tr)
+        return carry, seg_traces
+
+    ii = start_ii
+    seg_idx = 0
+    restores = 0
+    while ii <= samples:
+        if fault_hook is not None:
+            carry = fault_hook(seg_idx, carry)
+        end = min(ii + checkpoint_every - 1, samples)
+        carry_try, tr = scan_seg(carry, range(ii, end + 1))
+        seg_idx += 1
         if nan_guard and not _traces_finite(tr):
-            raise SAPGDivergenceError(
-                f"non-finite SAPG traces in iterations [2, {samples}] "
-                "(no checkpoint to restore from)"
+            can_restore = (
+                restores < max_restores
+                and checkpoint_path is not None
+                and os.path.exists(checkpoint_path)
             )
+            if not can_restore:
+                raise SAPGDivergenceError(
+                    f"non-finite SAPG traces in iterations [{ii}, {end}]; "
+                    f"restores exhausted ({restores}/{max_restores})"
+                )
+            restores += 1
+            carry, done, saved = restore_fn()
+            seg_traces = list(saved)
+            ii = 2 + done
+            continue
+        carry = carry_try
         seg_traces.append(tr)
+        ii = end + 1
+        if checkpoint_path is not None:
+            save_fn(carry, ii - 2, seg_traces)
     return carry, seg_traces
 
 
@@ -531,6 +715,7 @@ def assemble_result(
     logpi_wu: np.ndarray,
     logpi0: float,
     X_last: np.ndarray,
+    extra_out: Dict,
     exec_time: float,
 ) -> SAPGResult:
     """Host-side post-processing of the scalar traces into the reference
@@ -565,6 +750,13 @@ def assemble_result(
     # the reference stores g(X_ii) at index ii-1 and leaves the last slot 0
     gX = np.concatenate([traces["gX"], [0.0]])
 
+    if sapg.track_posterior_moments and extra_out:
+        pm_mean = _host(extra_out["pm_mean"])
+        cnt = float(extra_out["pm_count"])
+        pm_var = _host(extra_out["pm_m2"]) / max(cnt - 1.0, 1.0)
+    else:
+        pm_mean = pm_var = None
+
     return SAPGResult(
         theta_EB=theta_EB,
         sigma2_EB=sigma_EB,
@@ -588,6 +780,8 @@ def assemble_result(
         X_last=np.asarray(X_last),
         last_samp=sapg.samples,
         exec_time=exec_time,
+        posterior_mean=pm_mean,
+        posterior_var=pm_var,
     )
 
 
@@ -601,6 +795,11 @@ def run_sapg(
     mesh=None,
     route: Optional[str] = None,
     seeds: Optional[Callable] = None,
+    checkpoint_every: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_backend: str = "npz",
+    fault_hook=None,
+    max_restores: int = 1,
 ) -> SAPGResult:
     """Run warm-up + SAPG on the problem's device and assemble the full
     diagnostics bundle.
@@ -611,7 +810,22 @@ def run_sapg(
     where the step draws its noise in the kernel; by default
     generator_seeds(generator).
     mesh: the JAX package's sharded path; not ported yet (raises).
-    route: overrides the kernel route (make_general_sapg_step)."""
+    route: overrides the kernel route (make_general_sapg_step).
+
+    checkpoint_every/checkpoint_path enable mid-run checkpoint + resume:
+    the scan is segmented, the carry persisted after each segment, and an
+    existing checkpoint at `checkpoint_path` resumes the run mid-way,
+    skipping the warm-up (the same trajectory as an uninterrupted run).
+    With the default noise or seed source the checkpoint holds the
+    generator's state and the resume sets it on `generator`.  An injected
+    `noise` or `seeds` callable has no state the run could save: it is
+    called once per remaining step, so the caller positions it at the
+    checkpoint (the draws of the iterations the checkpoint has done, and of
+    the whole warm-up, are not asked for again).
+    checkpoint_backend: "npz" only ("orbax" raises NotImplementedError).
+    nan_guard/max_restores/fault_hook: fail-fast divergence supervision —
+    see run_segmented_scan; fault_hook(seg_idx, carry) -> carry gets the
+    carry (X, Xhat, prox, θ, σ², params[, extra])."""
     if mesh is not None:
         raise NotImplementedError("the sharded (mesh) SAPG path is not ported yet")
     cfg = problem.cfg
@@ -621,17 +835,20 @@ def run_sapg(
     device = problem.device
     step, aux = make_sapg_step(problem, n_chains, route=route)
     shape = (n_chains,) + tuple(blur.shape)
+    source_generator = None  # the generator whose state is the noise state
     if aux["in_kernel_rng"](n_chains):
         if seeds is None:
             if generator is None:
                 raise ValueError("run_sapg needs a generator or a seed source")
             seeds = generator_seeds(generator, device)
+            source_generator = generator
         draw = lambda: seeds(n_chains)  # noqa: E731
     else:
         if noise is None:
             if generator is None:
                 raise ValueError("run_sapg needs a generator or a noise source")
             noise = generator_noise(generator, dtype, device)
+            source_generator = generator
         draw = lambda: noise(shape)  # noqa: E731
 
     psf_names = aux["psf_names"]
@@ -649,17 +866,26 @@ def run_sapg(
     n_warm = max(sapg.warmup - 1, 0)
 
     t0 = time.perf_counter()
-    prox = prox_b(X, lam * theta0)[0]
-    Xhat = blur.rfft(X)
-    logpi_wu = torch.empty((n_warm,), dtype=dtype, device=device)
-    carry = (X, Xhat, prox)
-    for t in range(n_warm):
-        carry, logpi_wu[t] = warm_step(carry, consts, draw())
-    X, Xhat, prox = carry
-    # logPiTraceX(1) = logPi at the warm-start sample with the init params
-    res2_0 = pnorm2(H0[None] * Xhat - yhat[None])
-    logpi0 = torch.mean(-res2_0 / (2.0 * sigma0) - theta0 * tv_b(X))
-    carry = (X, Xhat, prox, theta0, sigma0, dict(params0))
+    resume = checkpoint_path is not None and os.path.exists(checkpoint_path)
+    if resume:
+        # the checkpoint carries the warm-up trace — skip the warm-up phase
+        # entirely; restore_fn below supplies the carry
+        carry = logpi_wu = logpi0 = None
+    else:
+        prox = prox_b(X, lam * theta0)[0]
+        Xhat = blur.rfft(X)
+        logpi_wu = torch.empty((n_warm,), dtype=dtype, device=device)
+        carry = (X, Xhat, prox)
+        for t in range(n_warm):
+            carry, logpi_wu[t] = warm_step(carry, consts, draw())
+        X, Xhat, prox = carry
+        # logPiTraceX(1) = logPi at the warm-start sample with the init params
+        res2_0 = pnorm2(H0[None] * Xhat - yhat[None])
+        logpi0 = torch.mean(-res2_0 / (2.0 * sigma0) - theta0 * tv_b(X))
+        carry = (X, Xhat, prox, theta0, sigma0, dict(params0))
+        if sapg.track_posterior_moments:
+            carry += (dict(pm_mean=torch.zeros_like(X), pm_m2=torch.zeros_like(X),
+                           pm_count=0.0),)
 
     def scan_seg(carry, iis):
         iis = list(iis)
@@ -674,19 +900,43 @@ def run_sapg(
         host = buf.cpu().numpy() if buf is not None else None
         return carry, {n: host[i] for i, n in enumerate(names)} if names else {}
 
-    carry, seg_traces = run_segmented_scan(scan_seg, carry, sapg.samples, nan_guard=nan_guard)
+    def restore():
+        nonlocal logpi_wu, logpi0
+        carry, done, traces, logpi_wu, logpi0 = _restore_checkpoint(
+            checkpoint_path, device, backend=checkpoint_backend, rfft=blur.rfft,
+            generator=source_generator,
+        )
+        return carry, done, traces
+
+    def save(carry, done, seg_traces):
+        _save_checkpoint(checkpoint_path, carry, done, seg_traces, logpi_wu, logpi0,
+                         generator=source_generator, backend=checkpoint_backend)
+
+    carry, seg_traces = run_segmented_scan(
+        scan_seg,
+        carry,
+        sapg.samples,
+        checkpoint_every=checkpoint_every,
+        checkpoint_path=checkpoint_path,
+        save_fn=save,
+        restore_fn=restore,
+        fault_hook=fault_hook,
+        nan_guard=nan_guard,
+        max_restores=max_restores,
+    )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     exec_time = time.perf_counter() - t0
-    traces = seg_traces[0] if seg_traces else {}
+    traces = _merge_traces(seg_traces) if seg_traces else {}
 
     return assemble_result(
         problem,
         psf_names,
         traces,
-        logpi_wu.cpu().numpy(),
+        _host(logpi_wu) if n_warm > 0 else np.zeros(0),
         float(logpi0),
-        carry[0].cpu().numpy(),
+        _host(carry[0]),
+        carry[6] if len(carry) > 6 else {},
         exec_time,
     )
 

@@ -48,6 +48,14 @@ plain version with the bounds of tests/test_torch_prox_variants.py: f
 within 1e-6 of max|f| in the float32 modes, within 1e-2 of the mode's own
 distance from base in the bfloat16 modes, equal sweep counts; roll and
 rollmul equal while exactly.
+
+The run surface on the card (64²): a SAPG run interrupted after a
+checkpoint and resumed equals the uninterrupted run within 1e-6 relative
+through kernel B and through kernel D (fft_mode='dft'), and the resumed
+run launches no warm-up step; TV-FISTA through A2 agrees with its plain
+route on the card within 1e-5 of the largest magnitude; the posterior
+moments at B=4 are finite, var ≥ 0, and equal the brute-force moments of
+the same run's samples within 1e-5.
 """
 import numpy as np
 import pytest
@@ -598,3 +606,92 @@ def test_wrappers_raise_on_bad_inputs(cuda_device):
                                                      device=cuda_device), g, g, g,
                                          rdft_matrices((16, 16), torch.float64, cuda_device),
                                          1.0, 1.0, 0.1, 1.0)
+
+
+def _card_run_problem(cuda_device, size=64, **sapg):
+    import dataclasses
+
+    from semiblind_tv_tpu_torch.runtime.config import gaussian_preset
+    from semiblind_tv_tpu_torch.runtime.problem import build_problem
+    from semiblind_tv_tpu_torch.utils.images import synthetic_wheel
+
+    cfg = gaussian_preset(fix_w1=False, fix_w2=False)
+    cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **sapg))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    return build_problem(synthetic_wheel(size), cfg, gen, device=cuda_device)
+
+
+class _Preempted(Exception):
+    pass
+
+
+@pytest.mark.parametrize("fft_mode,row", [("fft", "B"), ("dft", "D")])
+def test_resume_equals_uninterrupted_run_on_the_card(cuda_device, tmp_path, fft_mode, row):
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
+
+    samples, every = 40, 10
+    problem = _card_run_problem(cuda_device, samples=samples, warmup=10, burn_in=32,
+                                fft_mode=fft_mode)
+
+    def gen():
+        return torch.Generator(device=cuda_device).manual_seed(2)
+
+    def launches():
+        return (fused_step_cuda.LAUNCHES if row == "B" else fused_dft_cuda.DFT_LAUNCHES)
+
+    full = run_sapg(problem, gen())
+    ckpt = str(tmp_path / "sapg.npz")
+
+    def preempt(seg_idx, carry):
+        if seg_idx == 2:
+            raise _Preempted()
+        return carry
+
+    with pytest.raises(_Preempted):
+        run_sapg(problem, gen(), checkpoint_every=every, checkpoint_path=ckpt,
+                 fault_hook=preempt)
+    before = launches()
+    resumed = run_sapg(problem, torch.Generator(device=cuda_device).manual_seed(9),
+                       checkpoint_every=every, checkpoint_path=ckpt)
+    assert launches() - before == samples - 1 - 2 * every   # no warm-up step
+    for a, b in ((resumed.thetas, full.thetas), (resumed.sigma2s, full.sigma2s),
+                 (resumed.psf_param_traces["w1"], full.psf_param_traces["w1"]),
+                 (resumed.X_last, full.X_last)):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6 * np.abs(b).max())
+
+
+def test_fista_through_a2_matches_the_plain_route_on_the_card(cuda_device):
+    from semiblind_tv_tpu_torch.solvers.fista import fista_tv
+
+    problem = _card_run_problem(cuda_device, samples=2, warmup=1)
+    kw = dict(tau=0.05 * float(problem.sigma_true) ** 2, blur=problem.blur, max_iter=40, tol=0.0)
+    before = tv_cuda.FRESH_LAUNCHES
+    kern = fista_tv(problem.y, problem.H_true, **kw)
+    assert tv_cuda.FRESH_LAUNCHES - before == 40
+    plain = fista_tv(problem.y, problem.H_true, prox_route="plain", **kw)
+    assert kern.n_iters == plain.n_iters == 40
+    scale = np.abs(plain.x).max()
+    assert np.abs(kern.x - plain.x).max() <= 1e-5 * scale
+    np.testing.assert_allclose(kern.objective, plain.objective, rtol=1e-5)
+
+
+def test_posterior_moments_on_the_card(cuda_device):
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
+
+    problem = _card_run_problem(cuda_device, samples=30, warmup=5, burn_in=10,
+                                track_posterior_moments=True)
+    seen = []
+
+    def record(seg_idx, carry):
+        seen.append(carry[0].cpu().numpy())
+        return carry
+
+    res = run_sapg(problem, torch.Generator(device=cuda_device).manual_seed(2), n_chains=4,
+                   checkpoint_every=1, fault_hook=record)
+    assert res.posterior_mean.shape == (4, 64, 64)
+    assert np.all(np.isfinite(res.posterior_mean)) and np.all(np.isfinite(res.posterior_var))
+    assert np.all(res.posterior_var >= 0)
+    xs = np.stack(seen[10:] + [res.X_last]).astype(np.float64)
+    scale = np.abs(xs).max()
+    assert np.abs(res.posterior_mean - xs.mean(0)).max() <= 1e-5 * scale
+    assert np.abs(res.posterior_var - xs.var(0, ddof=1)).max() <= 1e-5 * scale ** 2

@@ -3,7 +3,9 @@
 * one step of the port against the spatial-domain numpy oracle
   (oracles.np_sapg_gaussian_step), as tests/test_sapg.py does for JAX;
 * 30-step trajectories (after a short warm-up) against JAX `run_sapg` for
-  the Gaussian (w free), Laplace and Moffat families: the JAX Problem goes
+  the Gaussian (w free), Laplace, Moffat and isotropic Gaussian families
+  (the last runs kernel B's route with positivity off, σ² pinned and θ in
+  log scale together): the JAX Problem goes
   into the port through `problem_from_arrays`, and the port's noise source
   replays the JAX draws, regenerated exactly as `estimator.chain_noise`
   makes them.
@@ -109,6 +111,7 @@ def test_one_step_matches_spatial_oracle():
     ("gaussian", 2, False),   # the unfused route: MYULA step, prox, TV apart
     ("laplace", 1, None),
     ("moffat", 2, None),
+    ("isotropic_gaussian", 1, None),
 ])
 def test_trajectory_matches_jax(family, n_chains, fused):
     kw = dict(fix_w1=False, fix_w2=False) if family == "gaussian" else {}
@@ -162,20 +165,17 @@ def test_fixed_psf_params_stay_true_and_otf_is_hoisted():
     "in_kernel_rng", "fuse_dft", "fuse_irdft",
 ])
 def test_unported_options_raise(option):
-    """The option not ported yet (posterior moments) raises; the log-scale
-    options and the in-kernel-noise and DFT-kernel options, ported since,
-    run (tests/test_torch_large_path.py and tests/test_torch_dft.py hold
-    them against the JAX package)."""
+    """Every option that once raised as not ported runs now: the log-scale
+    options, the in-kernel-noise and DFT-kernel options and the posterior
+    moments (tests/test_torch_large_path.py, tests/test_torch_dft.py and
+    tests/test_torch_moments.py hold them against the JAX package)."""
     cfg = _short(tcfg.gaussian_preset(fix_w1=False, fix_w2=False), samples=6, warmup=2)
     cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **{option: True}))
     problem = build_problem(synthetic_wheel(16), cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    if option != "track_posterior_moments":
-        res = run_sapg(problem, torch.Generator().manual_seed(1))
-        assert np.all(np.isfinite(res.thetas)) and np.all(np.isfinite(res.sigma2s))
-        return
-    with pytest.raises(NotImplementedError):
-        run_sapg(problem, torch.Generator().manual_seed(1))
+    res = run_sapg(problem, torch.Generator().manual_seed(1))
+    assert np.all(np.isfinite(res.thetas)) and np.all(np.isfinite(res.sigma2s))
+    assert (res.posterior_mean is not None) == (option == "track_posterior_moments")
 
 
 def test_mesh_argument_raises():
@@ -194,3 +194,43 @@ def test_nan_guard_raises_on_non_finite_traces():
         run_segmented_scan(scan_seg, None, 5)
     carry, segs = run_segmented_scan(scan_seg, "c", 5, nan_guard=False)
     assert carry == "c" and len(segs) == 1 and len(segs[0]["theta"]) == 4
+
+
+def test_standalone_myula_sampler_matches_jax():
+    """samplers.myula_sampler (SALSA/myula.m) fed the JAX draws: the last
+    sample and the chain mean agree with JAX `myula_sampler` to 1e-8."""
+    from semiblind_tv_tpu.samplers import myula_sampler as j_myula_sampler
+    from semiblind_tv_tpu_torch.samplers import myula_sampler
+
+    jc = jcfg.gaussian_preset()
+    x = synthetic_wheel(SIZE)
+    jp = j_build_problem(x, jc, jax.random.key(4), dtype=jnp.float64)
+    H = jp.H_true
+
+    def j_grad(v):
+        return jp.blur.irfft(np.conj(H) * (H * jnp.fft.rfft2(v) - jnp.asarray(jp.yhat))) \
+            / jp.sigma2_init
+
+    n_steps = 12
+    jx, jmean = j_myula_sampler(j_grad, jp.y, jax.random.key(5), n_steps=n_steps,
+                                gamma=jp.gamma, lam=jp.lambda_myula, theta=0.01)
+    keys = jax.random.split(jax.random.key(5), n_steps)
+    draws = [np.array(jax.random.normal(k, x.shape, jnp.float64)) for k in keys]
+
+    tp = problem_from_arrays(tcfg.gaussian_preset(), jax_problem_arrays(jp), device="cpu",
+                             dtype=torch.float64)
+    tH = tp.H_true
+
+    def t_grad(v):
+        return tp.blur.irfft(torch.conj(tH) * (tH * torch.fft.rfft2(v) - tp.yhat)) \
+            / tp.sigma2_init
+
+    it = iter(draws)
+    tx, tmean = myula_sampler(t_grad, tp.y, None, n_steps, tp.gamma, tp.lambda_myula, 0.01,
+                              noise=lambda shape: torch.from_numpy(next(it)))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=RTOL, atol=1e-8)
+    np.testing.assert_allclose(tmean.numpy(), np.asarray(jmean), rtol=RTOL, atol=1e-8)
+    # the default source: normals from the generator, positive samples
+    gx, gmean = myula_sampler(t_grad, tp.y, torch.Generator().manual_seed(0), 5, tp.gamma,
+                              tp.lambda_myula, 0.01)
+    assert torch.all(gx >= 0) and torch.isfinite(gmean).all()
