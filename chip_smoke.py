@@ -134,9 +134,36 @@ Phases:
      h. `runtime.profiling.trace` around 5 steps at 512² B=1: the exported
         Chrome trace names resident_step.
 
+  9. the solver zoo and the wavelet path, 512² wheel with the published
+     Gaussian OTF at BSNR 30 (`build_problem`); each path driven with the
+     launch counters set to 0 just before it and read just after:
+     a. `csalsa_tv`, 200 outer iterations at the reference's ε (σ from the
+        problem, µ1 0.05, µ2 10): A1 launched once an iteration, x finite,
+        ‖Ax − y‖ ≤ ε·(1 + 1e-3), mse_db below y's.
+     b. `coral_tv_l1` cold (A2) and warm (A1), 200 iterations each: the
+        last objective at most the first iteration's, mse_db below y's.
+        At 64² (60 iterations, chambolle_tol 0) 9a's and 9b's kernel
+        routes against `prox_route='plain'` on the card: max|Δx| ≤ 1e-6
+        relative (0 expected, `--fmad=false`).
+     c. `csalsa_tv` at 1024² (synthetic phantom), 50 iterations: the
+        blocked prox (F) launched 50 times, A1 never.
+     d. generic `salsa` (the blur as caller operators, a warm TV prox on
+        A1), `nesta` (TV, 5 continuation legs) and `spgl1_bpdn`: finite,
+        below y's mse_db, each time printed.
+     e. `cli.run_wavelet_l1` with the reference's defaults (L 4, Haar, blur
+        9, BSNR 30, 3000 samples): θ_EB in [1e-3, 1], mse_db below y's,
+        the SAPG and SALSA times.
+     f. `cli.oracle_sweep` with --no-sapg over 5 θ (SALSA through A1), and
+        with a 300/200 SAPG leg (A2's initial prox, B a step): the MSE-best
+        θ and its mse_db.
+     g. `circ_conv`/`circ_corr` against BlurOperator apply/adjoint (7×7,
+        512²) within 1e-5 relative, timed beside the rfft path.
+     Prints `phase9 took … s`.
+
 Prints the card line, a JSON line of the kernels (each with its bound:
 see PEAK_FP32 below; D and E also with their products' time and TF32
-bound; A2's launches are phase 3's and phase 8f's), and as the last line
+bound; A1's, A2's and B's launches add phase 9's to phase 3's, A2's also
+phase 8f's, F's phase 9c's to phase 5's), and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises (exit code != 0).
 """
@@ -1764,6 +1791,218 @@ def phase8(torch, dev, m, wheel_np, tag):
     print(f"phase8 took {time.perf_counter() - t:.1f} s", flush=True)
     return a2
 
+# ---------------------------------------------------------------------------
+# phase 9: the solver zoo and the wavelet path — C-SALSA, CoRAL, generic
+# SALSA, NESTA, SPGL1, the wavelet-L1 SAPG, the oracle sweep, circ_conv
+# ---------------------------------------------------------------------------
+
+ZOO_ITERS = 200
+ZOO_BOUND = 1e-6   # kernel route against the plain route on the card, 64²
+
+
+def zoo_path(torch, mods, fn):
+    """Drive one path of phase 9 with every launch counter of `mods` (tv_cuda,
+    fused_step_cuda, tv_blocked_cuda) set to 0 just before it: (fn(), host
+    seconds ending in a device sync, its launches of A1, A2, B and the
+    blocked prox)."""
+    tv_cuda, fs, tb = mods
+    reset_counters(tv_cuda, fs, tb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, dt, {"A1": tv_cuda.LAUNCHES - tv_cuda.FRESH_LAUNCHES, "A2": tv_cuda.FRESH_LAUNCHES,
+                     "B": fs.LAUNCHES, "F": tb.LAUNCHES}
+
+
+def phase9_kernel_vs_plain(torch, m, wheel_np, dev, tag):
+    """9a/9b at 64²: csalsa_tv through A1 and coral_tv_l1 through A2 (cold)
+    and A1 (warm) against prox_route='plain' on the card, chambolle_tol=0,
+    λ a device tensor; returns the largest relative difference in x."""
+    import numpy as np
+
+    c0, c1 = (v // 2 for v in wheel_np.shape)
+    img = wheel_np[c0 - 32:c0 + 32, c1 - 32:c1 + 32]
+    prob, _ = demo_problem(torch, m["build_problem"], m["gaussian_preset"](), img, dev)
+    s2 = float(prob.sigma_true) ** 2
+    runs = {
+        "csalsa_tv A1": lambda route: m["csalsa_tv"](
+            prob.y, prob.H_true, 0.05, 10.0, prob.blur, sigma=float(prob.sigma_true),
+            max_iter=60, tol=0.0, chambolle_tol=0.0, prox_route=route),
+        "coral cold A2": lambda route: m["coral_tv_l1"](
+            prob.y, prob.H_true, 0.05 * s2, 1e-3 * s2, prob.blur, mu1=0.05, mu2=0.05,
+            max_iter=60, tol=0.0, chambolle_tol=0.0, prox_route=route),
+        "coral warm A1": lambda route: m["coral_tv_l1"](
+            prob.y, prob.H_true, 0.05 * s2, 1e-3 * s2, prob.blur, mu1=0.05, mu2=0.05,
+            max_iter=60, tol=0.0, chambolle_tol=0.0, tv_warm_start=True, prox_route=route),
+    }
+    diffs = {}
+    for name, run in runs.items():
+        kern, plain = run(None), run("plain")
+        diffs[name] = float(np.abs(kern.x - plain.x).max() / np.abs(plain.x).max())
+    print(f"phase9 64x64 kernel route vs plain route on the card (60 iterations, chambolle_tol "
+          f"0), relative max|Δx|: {json.dumps(diffs)} (bound {ZOO_BOUND}, 0 expected) [{tag}]",
+          flush=True)
+    for name, d in diffs.items():
+        check(d <= ZOO_BOUND, f"phase9 {name}: kernel and plain routes differ by {d}")
+
+
+def phase9(torch, dev, m, wheel_np, tag):
+    """Phase 9; returns the launches of A1, A2, B and the blocked prox (F at
+    1024²) that the zoo's paths made."""
+    import numpy as np
+
+    from semiblind_tv_tpu_torch.cli import oracle_sweep, run_wavelet_l1
+    from semiblind_tv_tpu_torch.metrics import metrics
+    from semiblind_tv_tpu_torch.ops.spatial_conv import circ_conv, circ_corr
+    from semiblind_tv_tpu_torch.solvers.csalsa import default_epsilon
+    from semiblind_tv_tpu_torch.solvers.nesta import nesta
+    from semiblind_tv_tpu_torch.solvers.salsa_generic import salsa
+    from semiblind_tv_tpu_torch.solvers.spgl1 import spgl1_bpdn
+    from semiblind_tv_tpu_torch.utils.images import synthetic_wheel
+
+    tv_cuda = m["tv_cuda"]
+    mods = (tv_cuda, m["fs"], m["tb"])
+    total = {"A1": 0, "A2": 0, "B": 0, "F": 0}
+
+    def path(fn):
+        out, dt, n = zoo_path(torch, mods, fn)
+        for k in total:
+            total[k] += n[k]
+        return out, dt, n
+
+    t9 = time.perf_counter()
+    prob, _ = demo_problem(torch, m["build_problem"], m["gaussian_preset"](), wheel_np, dev)
+    y, H, blur, x_true = prob.y, prob.H_true, prob.blur, prob.x_true
+    sig = float(prob.sigma_true)
+    s2, d = sig ** 2, y.numel()
+    y_mse = float(metrics.mse_db(x_true, y))
+    size = "x".join(str(v) for v in y.shape)
+
+    def mse(x):
+        return float(metrics.mse_db(x_true, torch.as_tensor(x).to(dev)))
+
+    # 9a: C-SALSA (TV) at the reference's ε through A1
+    res, dt, n = path(lambda: m["csalsa_tv"](y, H, 0.05, 10.0, blur, sigma=sig,
+                                             max_iter=ZOO_ITERS, tol=0.0))
+    eps = default_epsilon(d, sig)
+    crit, ma = float(res.criterion[-1]), mse(res.x)
+    print(f"phase9a csalsa_tv {size} {ZOO_ITERS} iterations (µ1 0.05, µ2 10, tol 0): {dt:.3f} "
+          f"s, launches {json.dumps(n)}; ‖Ax − y‖/ε {crit / eps:.7f} (bound 1 + 1e-3); mse_db "
+          f"{ma:.3f} vs y's {y_mse:.3f} [{tag}]", flush=True)
+    check(n["A1"] == res.n_iters == ZOO_ITERS, f"csalsa_tv launched A1 {n['A1']} times")
+    check(np.all(np.isfinite(res.x)) and crit <= eps * (1 + 1e-3) and ma < y_mse,
+          "csalsa_tv 512² failed its checks")
+
+    # 9b: CoRAL (TV + L1), cold through A2 and warm through A1
+    for warm in (False, True):
+        res, dt, n = path(lambda: m["coral_tv_l1"](
+            y, H, 0.05 * s2, 1e-3 * s2, blur, mu1=0.05, mu2=0.05, max_iter=ZOO_ITERS, tol=0.0,
+            tv_warm_start=warm))
+        obj, mc = res.objective, mse(res.x)
+        print(f"phase9b coral_tv_l1 {'warm' if warm else 'cold'} {size} {ZOO_ITERS} "
+              f"iterations: {dt:.3f} s, launches {json.dumps(n)}; objective {obj[1]:.6g} "
+              f"(iteration 1) -> {obj[ZOO_ITERS // 2]:.6g} -> {obj[-1]:.6g}; mse_db {mc:.3f} vs "
+              f"y's {y_mse:.3f} [{tag}]", flush=True)
+        check((n["A1"], n["A2"]) == ((ZOO_ITERS, 0) if warm else (0, ZOO_ITERS)),
+              f"coral_tv_l1 warm={warm} launched {n}")
+        check(np.all(np.isfinite(res.x)) and obj[-1] <= obj[1] and mc < y_mse,
+              f"coral_tv_l1 warm={warm} failed its checks")
+    phase9_kernel_vs_plain(torch, m, wheel_np, dev, tag)
+
+    # 9c: csalsa_tv at 1024² goes through the blocked prox (F), not A1
+    big, _ = demo_problem(torch, m["build_problem"], m["gaussian_preset"](),
+                          synthetic_wheel(TILED), dev)
+    res, dt, n = path(lambda: m["csalsa_tv"](big.y, big.H_true, 0.05, 10.0, big.blur,
+                                             sigma=float(big.sigma_true), max_iter=50, tol=0.0))
+    print(f"phase9c csalsa_tv {TILED}x{TILED} 50 iterations: {dt:.3f} s, launches "
+          f"{json.dumps(n)} [{tag}]", flush=True)
+    check(n["F"] == 50 and n["A1"] == 0 and np.all(np.isfinite(res.x)),
+          f"csalsa_tv at {TILED}² launched {n}")
+
+    # 9d: generic SALSA (caller operators, the warm TV prox on A1), NESTA, SPGL1
+    theta = 0.05
+    tau, mu = theta * s2, theta * 0.1
+    absH2 = H.real ** 2 + H.imag ** 2
+    duals = [torch.zeros_like(y), torch.zeros_like(y)]
+
+    def tv_prox_a1(v, t):
+        f, st = tv_cuda.chambolle_prox_cuda(v, t, 10, duals=tuple(duals))
+        duals[:] = [st.px, st.py]
+        return f
+
+    res, dt, n = path(lambda: salsa(
+        y, lambda v: blur.irfft(H * blur.rfft(v)),
+        lambda v: blur.irfft(torch.conj(H) * blur.rfft(v)),
+        lambda r: blur.irfft(blur.rfft(r) / (absH2 + mu)), tau=tau, mu=mu, prox=tv_prox_a1,
+        phi=m["tv_norm"], max_iter=ZOO_ITERS, tol=0.0))
+    ms_ = mse(res.x)
+    print(f"phase9d salsa (generic) {size} {ZOO_ITERS} iterations, TV prox on A1: {dt:.3f} s, "
+          f"launches {json.dumps(n)}, mse_db {ms_:.3f} [{tag}]", flush=True)
+    check(n["A1"] == ZOO_ITERS and np.all(np.isfinite(res.x)) and ms_ < y_mse,
+          "generic salsa failed its checks")
+    res, dt, _ = path(lambda: nesta(y, H, blur, muf=0.1, delta=np.sqrt(d) * sig, max_iter=100))
+    mn = mse(res.x)
+    print(f"phase9d nesta TV {size} 5 legs of ≤100: {dt:.3f} s, {res.n_iters} iterations, "
+          f"mse_db {mn:.3f} [{tag}]", flush=True)
+    check(np.all(np.isfinite(res.x)) and mn < y_mse, "nesta failed its checks")
+    res, dt, _ = path(lambda: spgl1_bpdn(y, H, blur, sigma=np.sqrt(d) * sig, max_newton=5,
+                                         inner_iter=30))
+    mb = mse(res.x)
+    print(f"phase9d spgl1_bpdn {size} ≤5 Newton steps of ≤30: {dt:.3f} s, {res.n_iters} "
+          f"iterations in {res.n_newton} steps, ‖r‖/(σ√d) {res.resid_norm / (np.sqrt(d) * sig):.4f},"
+          f" mse_db {mb:.3f} [{tag}]", flush=True)
+    check(np.all(np.isfinite(res.x)) and mb < y_mse, "spgl1_bpdn failed its checks")
+
+    # 9e: the wavelet-L1 SAPG with the reference's defaults (L 4, Haar, blur
+    # 9, BSNR 30, 3000 samples), through its CLI
+    wheel_path = os.path.join(HERE, "data", "images", "wheel.png")
+    out, dt, _ = path(lambda: run_wavelet_l1.main(["--image", wheel_path, "--device", "cuda"]))
+    print(f"phase9e run_wavelet_l1 {size} L=4 Haar blur 9 BSNR 30, {out['samples']} samples: "
+          f"SAPG {out['sapg_time_s']:.3f} s, SALSA {out['salsa_time_s']:.3f} s "
+          f"({out['salsa_iters']} iterations), {dt:.3f} s in all; theta_EB "
+          f"{out['theta_EB']:.6g}, mse_db {out['mse_db']:.3f} vs y's "
+          f"{out['mse_db_observation']:.3f} [{tag}]", flush=True)
+    check(1e-3 <= out["theta_EB"] <= 1.0 and out["mse_db"] < out["mse_db_observation"],
+          "run_wavelet_l1 failed its checks")
+
+    # 9f: the oracle sweep, 5 θ without SAPG (SALSA through A1), then a short
+    # SAPG leg (A2's initial prox, B a step) with its EB point
+    out, dt, n = path(lambda: oracle_sweep.main(
+        ["--image", wheel_path, "--no-sapg", "--grid", "5", "--device", "cuda"]))
+    print(f"phase9f oracle_sweep {size} --no-sapg 5 θ: {dt:.3f} s, launches {json.dumps(n)}; "
+          f"oracle θ {out['oracle_theta']:.6g} mse_db {out['oracle_mse_db']:.3f} [{tag}]",
+          flush=True)
+    check(n["A1"] > 0 and np.all(np.isfinite(out["mse_db_curve"])),
+          "oracle_sweep failed its checks")
+    out, dt, n = path(lambda: oracle_sweep.main(
+        ["--image", wheel_path, "--samples", "300", "--warmup", "200", "--grid", "1",
+         "--device", "cuda"]))
+    print(f"phase9f oracle_sweep {size} with SAPG 300/200, 1 θ: {dt:.3f} s, launches "
+          f"{json.dumps(n)}; theta_EB {out['theta_EB']:.6g} eb_mse_db {out['eb_mse_db']:.3f} "
+          f"[{tag}]", flush=True)
+    # B once a warm-up and a main step: (200 − 1) + (300 − 1)
+    check(n["A2"] == 1 and n["B"] == 498 and n["A1"] > 0, f"oracle_sweep's SAPG launched {n}")
+
+    # 9g: circ_conv/circ_corr against the rfft blur at 512² (7×7 Gaussian)
+    k = m["gaussian_kernel"](7, 0.4, 0.3, device=dev)
+    Hk = blur.otf(k)
+    xs = torch.from_numpy(np.random.default_rng(9).random(tuple(y.shape)).astype(np.float32))
+    xs = xs.to(dev)
+    ec = rel(circ_conv(xs, k), blur.apply(xs, Hk))
+    et = rel(circ_corr(xs, k), blur.apply_adjoint(xs, Hk))
+    t_conv = cuda_ms(lambda: circ_conv(xs, k))
+    t_fft = cuda_ms(lambda: blur.apply(xs, Hk))
+    print(f"phase9g circ_conv / circ_corr vs BlurOperator apply / adjoint {size} 7x7: relative "
+          f"{ec:.3e} / {et:.3e} (bound 1e-5); circ_conv {t_conv * 1e3:.1f} us, rfft path "
+          f"{t_fft * 1e3:.1f} us [{tag}]", flush=True)
+    check(ec <= 1e-5 and et <= 1e-5, "circ_conv/circ_corr disagree with the rfft blur")
+
+    print(f"phase9 launches {json.dumps(total)}", flush=True)
+    print(f"phase9 took {time.perf_counter() - t9:.1f} s", flush=True)
+    return total
+
 
 def main() -> int:
     import torch
@@ -1935,6 +2174,20 @@ def main() -> int:
                 gaussian_preset=gaussian_preset, isotropic_preset=isotropic_preset)
     # A2's row counts its launches on the main path and on FISTA's
     launches["A2"] += phase8(torch, dev, mods, wheel_np, tag)
+
+    # ---- phase 9 ------------------------------------------------------------
+    from semiblind_tv_tpu_torch.ops.psf import gaussian_kernel
+    from semiblind_tv_tpu_torch.ops.tv import tv_norm
+    from semiblind_tv_tpu_torch.solvers.coral import coral_tv_l1
+    from semiblind_tv_tpu_torch.solvers.csalsa import csalsa_tv
+
+    mods.update(tb=tb, csalsa_tv=csalsa_tv, coral_tv_l1=coral_tv_l1, tv_norm=tv_norm,
+                gaussian_kernel=gaussian_kernel)
+    zoo = phase9(torch, dev, mods, wheel_np, tag)
+    # A1, A2 and B count the zoo's paths too, F its 1024² C-SALSA
+    for k in ("A1", "A2", "B"):
+        launches[k] += zoo[k]
+    big_launches["F"] += zoo["F"]
 
     src = KERNELS_SRC
     rows = [

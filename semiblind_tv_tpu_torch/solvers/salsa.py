@@ -31,7 +31,8 @@ from semiblind_tv_tpu_torch.ops.tv import tv_norm
 from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_prox_blocked
 from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain
 
-__all__ = ["SALSAResult", "salsa_tv", "soft_threshold", "resolve_salsa_prox_mode"]
+__all__ = ["SALSAResult", "salsa_tv", "soft_threshold", "l1_norm", "resolve_salsa_prox_mode",
+           "SALSA_PROX"]
 
 _CHECK_EVERY = 32  # outer iterations between host reads of the stop flag
 
@@ -41,6 +42,11 @@ def soft_threshold(x, T):
     T = torch.as_tensor(T, dtype=x.dtype, device=x.device)
     y = torch.clamp(torch.abs(x) - T, min=0.0)
     return torch.where(T == 0, x, y / (y + T) * x)
+
+
+def l1_norm(x):
+    """‖x‖₁ (the default Φ of the reference's solvers)."""
+    return torch.sum(torch.abs(x))
 
 
 def resolve_salsa_prox_mode(shape, device) -> str:
@@ -60,6 +66,11 @@ def resolve_salsa_prox_mode(shape, device) -> str:
     if torch.device(device).type != "cuda":
         return "plain"
     return {None: "A1", "tiled": "F", "streamed": "H"}[blocked_rung(shape)]
+
+
+# the warm-dual prox of each route resolve_salsa_prox_mode names
+SALSA_PROX = {"plain": chambolle_prox_plain, "A1": chambolle_prox_cuda,
+              "F": chambolle_prox_blocked, "H": chambolle_prox_blocked}
 
 
 @dataclasses.dataclass
@@ -94,10 +105,7 @@ def salsa_tv(
     if stop_criterion not in (1, 2, 3):
         raise ValueError(f"stop_criterion must be 1, 2 or 3, got {stop_criterion}")
     dtype, device = blur.dtype, blur.device
-    if prox_route is None:
-        prox_route = resolve_salsa_prox_mode(blur.shape, device)
-    prox = {"plain": chambolle_prox_plain, "A1": chambolle_prox_cuda,
-            "F": chambolle_prox_blocked, "H": chambolle_prox_blocked}[prox_route]
+    prox = SALSA_PROX[prox_route or resolve_salsa_prox_mode(blur.shape, device)]
     d = blur.dim
     w = blur.weights
     y = torch.as_tensor(y, dtype=dtype).to(device)

@@ -16,39 +16,6 @@ import torch
 from tests.test_migration_surface import DOCUMENTED
 
 NOT_YET = {
-    # the solver zoo and the wavelet path (ROADMAP queue 1 item 3)
-    ("semiblind_tv_tpu.cli.oracle_sweep", "main"),
-    ("semiblind_tv_tpu.cli.run_wavelet_l1", "main"),
-    ("semiblind_tv_tpu.solvers.salsa_generic", "salsa"),
-    ("semiblind_tv_tpu.solvers.salsa_generic", "salsa_v1"),
-    ("semiblind_tv_tpu.solvers.csalsa", "csalsa"),
-    ("semiblind_tv_tpu.solvers.csalsa", "csalsa_tv"),
-    ("semiblind_tv_tpu.solvers.csalsa", "csalsa_synthesis"),
-    ("semiblind_tv_tpu.solvers.coral", "coral"),
-    ("semiblind_tv_tpu.solvers.coral", "coral_tv_l1"),
-    ("semiblind_tv_tpu.solvers.nesta", "nesta"),
-    ("semiblind_tv_tpu.solvers.spgl1", "spg_lasso"),
-    ("semiblind_tv_tpu.solvers.spgl1", "spgl1_bpdn"),
-    ("semiblind_tv_tpu.solvers", "csalsa"),
-    ("semiblind_tv_tpu.solvers", "csalsa_tv"),
-    ("semiblind_tv_tpu.solvers", "csalsa_synthesis"),
-    ("semiblind_tv_tpu.solvers", "coral"),
-    ("semiblind_tv_tpu.solvers", "coral_tv_l1"),
-    ("semiblind_tv_tpu.solvers", "nesta"),
-    ("semiblind_tv_tpu.solvers", "spg_lasso"),
-    ("semiblind_tv_tpu.solvers", "spgl1_bpdn"),
-    ("semiblind_tv_tpu.ops.tv", "tv_denoise_circular"),
-    ("semiblind_tv_tpu.ops.tv", "projk_denoise"),
-    ("semiblind_tv_tpu.ops.wavelet", "daubcqf"),
-    ("semiblind_tv_tpu.ops.wavelet", "ti_analysis"),
-    ("semiblind_tv_tpu.ops.wavelet", "ti_synthesis"),
-    ("semiblind_tv_tpu.ops.wavelet", "uniform_blur_kernel"),
-    ("semiblind_tv_tpu.utils.signals", "calctv"),
-    ("semiblind_tv_tpu.utils.signals", "monotonize"),
-    ("semiblind_tv_tpu.utils.signals", "sparse_pws"),
-    ("semiblind_tv_tpu.utils.signals", "make_rd_squares"),
-    ("semiblind_tv_tpu.utils.signals", "vectorized_operator"),
-    ("semiblind_tv_tpu.utils.signals", "ensure"),
     # the parallel code (ROADMAP queue 1 item 5)
     ("semiblind_tv_tpu.cli.run_sharded", "main"),
 }
