@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase10     # phases 0, 1 and 10 only
 
 Phases:
   0. the card (nvidia-smi name and power limit), torch/CUDA versions; TF32
@@ -48,7 +49,7 @@ Phases:
         the same inputs.
      b. `run_demo` at 2048² synthetic — Gaussian with w free and the
         σ²-log-scale option, Laplace, Moffat — and at 1024² synthetic with
-        the published Gaussian preset (w pinned), 1200 samples after 900
+        the published Gaussian preset (w pinned), 1000 samples after 700
         warm-up, SALSA to 500: the blocked counters rose and kernel A's and
         B's did not, results finite and in their boxes, mse_db below y's.
      c. the 1024² pipeline (60 SAPG steps, 60 SALSA iterations) through the
@@ -87,7 +88,7 @@ Phases:
         C call, and the C side's unit cost of a tensor-map encoding and of
         an attribute set.  The library's SASS holds the GEMM's HGMMA TF32
         instructions (cuobjdump).
-     b. `run_demo` (1200/900 samples): 512² published Gaussian in dft mode
+     b. `run_demo` (1000/700 samples): 512² published Gaussian in dft mode
         with fuse_dft (D) and with fuse_irdft (E; B runs the warm-up),
         512² with in_kernel_rng (C), 256² B=2 in dft mode (the auto rule
         picks D), 2048² synthetic Gaussian w free with σ²-log-scale and
@@ -107,7 +108,7 @@ Phases:
         25 sweeps, 100 chained steps, one JSON line each, and the
         production A2 kernel timed on the same inputs.
   8. the run surface (files under the git-ignored build/phase8/):
-     a. resume: the 512² Gaussian w-free demo (phase 5's 1200/900) run
+     a. resume: the 512² Gaussian w-free demo (phase 5's 1000/700) run
         uninterrupted; the same SAPG run with checkpoint_every=300 cut by a
         preemption before segment 2; `run_demo` on that checkpoint resumes:
         kernel B launched once for each main step left and never for the
@@ -121,7 +122,7 @@ Phases:
         the same bound; D's launches counted.
      d. posterior moments at 512² B=16 (200 steps after burn-in): finite,
         var ≥ 0; the step rate without and with them, interleaved.
-     e. the isotropic family's 512² demo (1200/900): θ and w in their
+     e. the isotropic family's 512² demo (1000/700): θ and w in their
         boxes, mse_db below y's.
      f. TV-FISTA at 512² (H_true, 100 iterations, tol 0) through A2, its
         time and launches (100); at 64² (100 iterations) A2 against the
@@ -159,11 +160,34 @@ Phases:
      g. `circ_conv`/`circ_corr` against BlurOperator apply/adjoint (7×7,
         512²) within 1e-5 relative, timed beside the rfft path.
      Prints `phase9 took … s`.
+ 10. the parallel path (parallel/, cli/run_sharded.py), 512² wheel, BSNR 30,
+     Gaussian with w free, 200/100 samples; each path driven with the launch
+     counters set to 0 just before it and read just after:
+     a. a one-process NCCL world and a 1x1 ('data', 'chains') mesh:
+        run_sapg(mesh=, n_chains=4) against run_sapg(n_chains=4) on the same
+        generator (bit-equal, or within 1e-6 relative: printed which); A2
+        once, B once a step.
+     b. `run_sharded --problems 4 --chains-per-shard 4` in that world: one B
+        launch of 16 chains a step (γ, λ, λθ one value a chain), each
+        problem's θ_EB/σ²_EB/PSF in their boxes and mse_db below y's; each
+        problem of run_sapg_sharded against its own single-problem run on
+        the same noise (traces 1e-6, X_last 1e-5 relative; bit-equality
+        printed); the 16-chain launch's chain-iter/s beside 4 single-problem
+        runs'.  Kernels B, A2 and A1 at 512² B=16 with (B,) scalars against
+        their plain versions fed the same vectors: bit-equal (tol 0).
+     c. two processes on the one card over gloo (2 of 4 chains each): θ and
+        σ² after 100 steps within 1e-5 of 10a's one rank.
+     d. run_sapg_spatial (60/30, dft) and spatial_salsa_tv (60 iterations)
+        in a one-rank ('space',) world against run_sapg and salsa_tv on the
+        plain route: within 1e-5 relative.
+     e. `benchmarks/run_reference_images` over wheel and boat at 64/32
+        samples, aggregated by run_stats.
+     Prints `phase10 took … s`.
 
 Prints the card line, a JSON line of the kernels (each with its bound:
 see PEAK_FP32 below; D and E also with their products' time and TF32
-bound; A1's, A2's and B's launches add phase 9's to phase 3's, A2's also
-phase 8f's, F's phase 9c's to phase 5's), and as the last line
+bound; A1's, A2's and B's launches add phases 9's and 10's to phase 3's,
+A2's also phase 8f's, F's phase 9c's to phase 5's), and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises (exit code != 0).
 """
@@ -189,9 +213,9 @@ DFT_SRC = "semiblind_tv_tpu_torch/csrc/dft_kernels.cu"
 TILED, STREAMED = 1024, 2048
 KERNEL_SHAPES = [(1, TILED, TILED), (4, TILED, TILED), (1, STREAMED, STREAMED),
                  (2, STREAMED, STREAMED), (3, 1000, 1528)]
-# the demos of phases 5 and 6: three fifths of phase 3's 2000/1500, to keep
-# the whole run within its time
-DEMO_BUDGET = dict(samples=1200, warmup=900, burn_in=960)
+# the demos of phases 5, 6 and 8: half of phase 3's 2000/1500, to keep the
+# whole run within its time
+DEMO_BUDGET = dict(samples=1000, warmup=700, burn_in=800)
 J_SRC = "semiblind_tv_tpu_torch/csrc/prox_variants.cu"
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its float operations over the H100 SXM's non-tensor float32 peak
@@ -758,7 +782,8 @@ def blocked_prox_raw(torch, lib, tb, g, lam, max_iter, geometry):
     check(lib.sb_chambolle_prox_blocked(
         g.data_ptr(), lam.data_ptr(), None, None, px_buf.data_ptr(), py_buf.data_ptr(),
         state.data_ptr(), err.data_ptr(), partials.data_ptr(), f.data_ptr(), None, None,
-        B, M, N, TYb, TXb, K, max_iter, 0.249, 0.0, torch.cuda.current_stream().cuda_stream) == 0,
+        B, M, N, TYb, TXb, K, max_iter, 0.249, 0.0, 0, torch.cuda.current_stream().cuda_stream)
+        == 0,
         "sb_chambolle_prox_blocked failed")
     return f
 
@@ -2004,6 +2029,269 @@ def phase9(torch, dev, m, wheel_np, tag):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the parallel path — the ('data', 'chains') sharded SAPG with a
+# rank's problems in one launch (per-chain scalars), run_sharded, two ranks
+# on the card over gloo, the row-split spatial estimator, the parity sweep
+# ---------------------------------------------------------------------------
+
+PHASE10_DIR = os.path.join(HERE, "build", "phase10")   # git-ignored
+P10_DEVICE = "cuda"
+P10_BUDGET = dict(samples=200, warmup=100, burn_in=160)
+P10_CHAINS = 4
+P10_PROBLEMS = 4
+P10_GLOO_STEPS = 100
+TRACE_BOUND = 1e-6     # 10a/10b: traces against the single-device runs
+XLAST_BOUND = 1e-5     # 10b: X_last
+GLOO_BOUND = 1e-5      # 10c: θ, σ² after 100 steps, two ranks against one
+SPATIAL_BOUND = 1e-5   # 10d
+
+
+def p10_cfg(m, **over):
+    cfg = m["gaussian_preset"](fix_w1=False, fix_w2=False)
+    return dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **dict(P10_BUDGET, **over)))
+
+
+def traces_rel(a, b):
+    """The largest relative difference of two SAPG runs' θ, σ², PSF and logπ
+    traces (each over its largest magnitude)."""
+    import numpy as np
+
+    pairs = [(a.thetas, b.thetas), (a.sigma2s, b.sigma2s), (a.logPiTrace, b.logPiTrace)]
+    pairs += [(a.psf_param_traces[n], b.psf_param_traces[n]) for n in b.psf_param_traces]
+    return max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30)) for x, y in pairs)
+
+
+def field_rel(a, b):
+    import numpy as np
+
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def bitwise(a, b):
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("thetas", "sigma2s", "logPiTrace", "X_last"))
+
+
+def phase10c_rank(rank, wheel_path, n_steps, warmup, device_type):
+    """One of the two gloo ranks of 10c on the one card: 2 of the 4 chains
+    of phase 10's problem; (θ, σ²) traces."""
+    import torch
+
+    from semiblind_tv_tpu_torch.parallel.mesh import make_mesh
+    from semiblind_tv_tpu_torch.runtime.config import gaussian_preset
+    from semiblind_tv_tpu_torch.runtime.problem import build_problem
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
+    from semiblind_tv_tpu_torch.utils.images import load_image
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+           else torch.device(device_type))
+    cfg = p10_cfg(dict(gaussian_preset=gaussian_preset), samples=n_steps + 1, warmup=warmup,
+                  burn_in=n_steps // 2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    problem = build_problem(load_image(wheel_path), cfg, gen, device=dev)
+    mesh = make_mesh(1, 2, device_type=device_type)
+    res = run_sapg(problem, gen, n_chains=P10_CHAINS, mesh=mesh)
+    return res.thetas, res.sigma2s
+
+
+def phase10_chain_scalars(torch, dev, m, problems, tag):
+    """Kernels B, A2 and A1 with (B,) scalars — the 16 chains of 10b's four
+    problems, γ, λ and λθ₀ of each problem repeated for its chains —
+    against their plain versions fed the same vectors (tol 0: bit-equal)."""
+    tv_cuda, fs = m["tv_cuda"], m["fs"]
+    C = P10_CHAINS
+    gam = torch.stack([p.gamma for p in problems]).repeat_interleave(C)
+    lam = torch.stack([p.lambda_myula for p in problems]).repeat_interleave(C)
+    lt = lam * problems[0].cfg.theta.init
+    X = torch.stack([p.y for p in problems]).repeat_interleave(C, dim=0).contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    z = torch.randn(X.shape, generator=gen, device=dev)
+    grad = torch.randn(X.shape, generator=gen, device=dev) * 0.01
+    prox = X + torch.randn(X.shape, generator=gen, device=dev)
+    out = {}
+    kw = dict(n_sweeps=25, tol=0.0)
+    k = fs.myula_prox_tv(X, prox, grad, z, gam, lam, lt, **kw)
+    p = fs.myula_prox_tv_plain(X, prox, grad, z, gam, lam, lt, **kw)
+    out["B"] = (max_abs(zip(k[:2], p[:2])), rel(k[2], p[2]))
+    f, _ = tv_cuda.chambolle_prox_cuda(X, lt, 25, tol=0.0, return_state=False)
+    pf, _ = tv_cuda.chambolle_prox_plain(X, lt, 25, tol=0.0, return_state=False)
+    out["A2"] = (max_abs([(f, pf)]), 0.0)
+    duals = (z * 0.1, grad * 10)
+    f, st = tv_cuda.chambolle_prox_cuda(X, lam * 20, 10, tol=0.0, duals=duals)
+    pf, pst = tv_cuda.chambolle_prox_plain(X, lam * 20, 10, tol=0.0, duals=duals)
+    out["A1"] = (max_abs([(f, pf), (st.px, pst.px), (st.py, pst.py)]), 0.0)
+    print(f"phase10b kernels with (B,) scalars, 512x512 B={X.shape[0]} (4 problems x {C} "
+          f"chains), against their plain versions fed the same vectors, tol 0: max|Δ| "
+          + ", ".join(f"{k_} {v[0]:.3e}" for k_, v in out.items())
+          + f"; B's TV {out['B'][1]:.3e} relative; barrier error {tv_cuda.barrier_error()} "
+          f"[{tag}]", flush=True)
+    for k_, (d, _) in out.items():
+        check(d == 0.0, f"kernel {k_} with per-chain scalars differs from its plain version")
+    check(out["B"][1] <= REL_BOUND, "kernel B's TV with per-chain scalars")
+    check(tv_cuda.barrier_error() == 0, "a barrier gave up with per-chain scalars")
+
+
+def phase10(torch, dev, m, wheel_np, tag):
+    """Phase 10; returns the launches of A1, A2 and B its paths made."""
+    import numpy as np
+
+    from semiblind_tv_tpu_torch.benchmarks import run_reference_images
+    from semiblind_tv_tpu_torch.cli import run_sharded
+    from semiblind_tv_tpu_torch.parallel import spatial
+    from semiblind_tv_tpu_torch.parallel.mesh import make_mesh, make_spatial_mesh
+    from semiblind_tv_tpu_torch.parallel.sapg_parallel import run_sapg_sharded
+    from semiblind_tv_tpu_torch.runtime.distributed import initialize, spawn
+    from semiblind_tv_tpu_torch.solvers.salsa import salsa_tv
+
+    mods = (m["tv_cuda"], m["fs"], m["tb"])
+    total = {"A1": 0, "A2": 0, "B": 0}
+
+    def path(fn):
+        out, dt, n = zoo_path(torch, mods, fn)
+        for k in total:
+            total[k] += n[k]
+        return out, dt, n
+
+    t10 = time.perf_counter()
+    os.makedirs(PHASE10_DIR, exist_ok=True)
+    wheel_path = os.path.join(HERE, "data", "images", "wheel.png")
+    cfg = p10_cfg(m)
+    steps = (cfg.sapg.warmup - 1) + (cfg.sapg.samples - 1)
+
+    # 10a: a one-process NCCL world, a 1x1 mesh, against run_sapg
+    t0 = time.perf_counter()
+    initialize(P10_DEVICE)
+    mesh = make_mesh(1, 1, device_type=P10_DEVICE)
+    t_init = time.perf_counter() - t0
+    prob, gen = demo_problem(torch, m["build_problem"], cfg, wheel_np, dev)
+    state = gen.get_state()
+    res_a, dt_a, n_a = path(lambda: m["run_sapg"](prob, gen, n_chains=P10_CHAINS, mesh=mesh))
+    gen.set_state(state)
+    ref_a = m["run_sapg"](prob, gen, n_chains=P10_CHAINS)
+    d_a = max(traces_rel(res_a, ref_a), field_rel(res_a.X_last, ref_a.X_last))
+    same = bitwise(res_a, ref_a)
+    print(f"phase10a run_sapg(mesh=1x1 NCCL) 512x512 w free {cfg.sapg.samples}/"
+          f"{cfg.sapg.warmup}, {P10_CHAINS} chains: launches {json.dumps(n_a)}; against "
+          f"run_sapg(n_chains={P10_CHAINS}) on the same generator: "
+          f"{'bit-equal' if same else f'max relative {d_a:.3e}'} (bound {TRACE_BOUND}); "
+          f"{dt_a:.3f} s vs {ref_a.exec_time:.3f} s; world and mesh set up in {t_init:.3f} s "
+          f"[{tag}]", flush=True)
+    check(n_a["A2"] == 1 and n_a["B"] == steps, f"10a launched {n_a}")
+    check(d_a <= TRACE_BOUND, f"10a left the single-device run: {d_a}")
+
+    # 10b: D=4 problems x C=4 chains in one world: one B launch of 16 chains
+    # a step, through run_sharded, then each problem against its own run
+    argv = ["--problems", str(P10_PROBLEMS), "--chains-per-shard", str(P10_CHAINS),
+            "--no-fix-w", "--samples", str(cfg.sapg.samples), "--warmup", str(cfg.sapg.warmup),
+            "--image", wheel_path, "--size", "512", "--device", P10_DEVICE]
+    out, dt_b, n_b = path(lambda: run_sharded.main(argv))
+    check(n_b["B"] == steps and n_b["A2"] == 1 and n_b["A1"] > 0,
+          f"run_sharded launched {n_b} (one B a step for all {P10_PROBLEMS * P10_CHAINS} chains)")
+    sig = [float(v) for v in np.asarray([e["sigma2_EB"] for e in out["problems"]])]
+    gens = []
+    problems = []
+    for d_ in range(P10_PROBLEMS):
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.seed + d_)
+        problems.append(m["build_problem"](wheel_np, cfg, g, device=dev))
+        gens.append(g)
+    states = [g.get_state() for g in gens]
+    sharded = run_sapg_sharded(problems, mesh, gens, chains_per_shard=P10_CHAINS)
+    singles = []
+    for g, st, p_ in zip(gens, states, problems):
+        g.set_state(st)
+        singles.append(m["run_sapg"](p_, g, n_chains=P10_CHAINS))
+    d_tr = max(traces_rel(a, b) for a, b in zip(sharded, singles))
+    d_x = max(field_rel(a.X_last, b.X_last) for a, b in zip(sharded, singles))
+    same_b = all(bitwise(a, b) for a, b in zip(sharded, singles))
+    r16 = P10_PROBLEMS * P10_CHAINS * steps / sharded[0].exec_time
+    r4 = P10_PROBLEMS * P10_CHAINS * steps / sum(s_.exec_time for s_ in singles)
+    for d_, e in enumerate(out["problems"]):
+        s_lo, s_hi = (float(v) for v in problems[d_].sigma2_box)
+        check(cfg.theta.box[0] <= e["theta_EB"] <= cfg.theta.box[1]
+              and s_lo <= e["sigma2_EB"] <= s_hi
+              and all(s_.box[0] <= e["psf_params_EB"][s_.name] <= s_.box[1]
+                      for s_ in cfg.psf_params)
+              and e["mse_db"] < e["mse_db_observation"],
+              f"10b problem {d_} failed check_demo's rules: {e}")
+        check(abs(e["theta_EB"] - sharded[d_].theta_EB) <= TRACE_BOUND * sharded[d_].theta_EB,
+              f"10b: the CLI's problem {d_} differs from run_sapg_sharded's")
+    print(f"phase10b run_sharded --problems {P10_PROBLEMS} --chains-per-shard {P10_CHAINS} "
+          f"512x512 w free: {dt_b:.3f} s (SAPG {out['sapg_wall_s']:.3f} s), launches "
+          f"{json.dumps(n_b)}; theta_EB {[round(e['theta_EB'], 6) for e in out['problems']]}, "
+          f"sigma2_EB {[round(v, 4) for v in sig]}, mse_db "
+          f"{[round(e['mse_db'], 3) for e in out['problems']]} vs y's "
+          f"{[round(e['mse_db_observation'], 3) for e in out['problems']]}; each problem against "
+          f"its own run on the same noise: {'bit-equal' if same_b else 'not bit-equal'}, traces "
+          f"{d_tr:.3e} (bound {TRACE_BOUND}), X_last {d_x:.3e} (bound {XLAST_BOUND}); "
+          f"chain-iter/s: 16 chains in one launch {r16:.1f}, 4 single-problem runs {r4:.1f} "
+          f"[{tag}]", flush=True)
+    check(d_tr <= TRACE_BOUND and d_x <= XLAST_BOUND, "10b left the single-problem runs")
+    phase10_chain_scalars(torch, dev, m, problems, tag)
+
+    # 10c: two processes on the one card over gloo, 2 of 4 chains each
+    n_c = P10_GLOO_STEPS
+    t0 = time.perf_counter()
+    th_c, s2_c = spawn(phase10c_rank, 2, (wheel_path, n_c, cfg.sapg.warmup, P10_DEVICE),
+                       device_type=P10_DEVICE, backend="gloo", timeout=300)[0]
+    dt_c = time.perf_counter() - t0
+    d_c = max(field_rel(th_c, res_a.thetas[:n_c + 1]), field_rel(s2_c, res_a.sigma2s[:n_c + 1]))
+    print(f"phase10c two ranks on one card over gloo (2 of {P10_CHAINS} chains each), "
+          f"{cfg.sapg.warmup} warm-up + {n_c} steps: θ and σ² traces against 10a's one rank, "
+          f"max relative {d_c:.3e} (bound {GLOO_BOUND}); {dt_c:.3f} s with both processes' "
+          f"start [{tag}]", flush=True)
+    check(d_c <= GLOO_BOUND, f"10c: two ranks left one: {d_c}")
+
+    # 10d: the row-split estimator and SALSA in a one-rank 'space' world
+    smesh = make_spatial_mesh(1, device_type=P10_DEVICE)
+    cfg_d = p10_cfg(m, samples=60, warmup=30, burn_in=48, fft_mode="dft")
+    prob_d, gen_d = demo_problem(torch, m["build_problem"], cfg_d, wheel_np, dev)
+    st = gen_d.get_state()
+    t0 = time.perf_counter()
+    sp = spatial.run_sapg_spatial(prob_d, smesh, gen_d)
+    dt_sp = time.perf_counter() - t0
+    gen_d.set_state(st)
+    ref_d = m["run_sapg"](prob_d, gen_d, n_chains=1, route="plain")
+    d_d = max(traces_rel(sp, ref_d), field_rel(sp.X_last, ref_d.X_last))
+    theta, s2 = 0.05, float(prob_d.sigma_true) ** 2
+    kw = dict(max_iter=60, tol=0.0, tv_iters=10)
+    t0 = time.perf_counter()
+    x_sp, objs, n_sp = spatial.spatial_salsa_tv(prob_d.y, prob_d.H_true, theta * s2, theta * 0.1,
+                                                smesh, **kw)
+    dt_ss = time.perf_counter() - t0
+    ref_s = salsa_tv(prob_d.y, prob_d.H_true, theta * s2, theta * 0.1, prob_d.blur,
+                     prox_route="plain", **kw)
+    d_s = max(field_rel(x_sp.cpu().numpy(), ref_s.x), field_rel(objs, ref_s.objective[1:]))
+    print(f"phase10d run_sapg_spatial (1 rank, 60/30, dft) against run_sapg route plain: max "
+          f"relative {d_d:.3e}; spatial_salsa_tv (60 iterations, tol 0) against salsa_tv route "
+          f"plain: {d_s:.3e} (bound {SPATIAL_BOUND}); {dt_sp:.3f} s / {dt_ss:.3f} s [{tag}]",
+          flush=True)
+    check(d_d <= SPATIAL_BOUND and d_s <= SPATIAL_BOUND and n_sp == 60,
+          "10d: the spatial path left the single-device one")
+
+    # 10e: the parity sweep over two photographs
+    outdir = os.path.join(PHASE10_DIR, "parity")
+    (agg, per), dt_e, n_e = path(lambda: run_reference_images.main(
+        ["--images", "wheel,boat", "--samples", "64", "--warmup", "32", "--device", P10_DEVICE,
+         "--out", outdir]))
+    print(f"phase10e run_reference_images wheel, boat 512x512 64/32 samples: {dt_e:.3f} s, "
+          f"launches {json.dumps(n_e)}; run_stats {json.dumps(agg)}; mse_db "
+          f"{[round(r['mse_db'], 3) for r in per.values()]} vs y's "
+          f"{[round(r['mse_db_observation'], 3) for r in per.values()]} [{tag}]", flush=True)
+    check(agg["count"] == 2.0 and np.isfinite(agg["mse_avg"]) and n_e["B"] > 0,
+          "10e: the parity sweep failed its checks")
+    print(f"phase10 launches {json.dumps(total)}", flush=True)
+    print(f"phase10 took {time.perf_counter() - t10:.1f} s", flush=True)
+    torch.distributed.destroy_process_group()   # 10a's one-process world
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2059,8 +2347,18 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             print("phase1   " + line.strip(), flush=True)
 
-    # ---- phase 2 ------------------------------------------------------------
     wheel_np = load_image(os.path.join(HERE, "data", "images", "wheel.png"))
+    if "--phase10" in sys.argv[1:]:
+        # phase 10 by itself (after phases 0 and 1)
+        phase10(torch, dev, dict(fs=fused_step_cuda, tv_cuda=tv_cuda, tb=tb, run_sapg=run_sapg,
+                                 build_problem=build_problem, gaussian_preset=gaussian_preset),
+                wheel_np, tag)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    # ---- phase 2 ------------------------------------------------------------
     wheel = torch.from_numpy(wheel_np.astype(np.float32)).to(dev)
     stats = phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag)
     resident_design(torch, dev, tv_cuda, fused_step_cuda, _build, wheel, tag)
@@ -2188,6 +2486,11 @@ def main() -> int:
     for k in ("A1", "A2", "B"):
         launches[k] += zoo[k]
     big_launches["F"] += zoo["F"]
+
+    # ---- phase 10 -----------------------------------------------------------
+    par = phase10(torch, dev, mods, wheel_np, tag)
+    for k in ("A1", "A2", "B"):
+        launches[k] += par[k]
 
     src = KERNELS_SRC
     rows = [

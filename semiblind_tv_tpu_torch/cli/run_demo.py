@@ -28,9 +28,19 @@ instead of SALSA.  `--out DIR` writes results.json and traces.npz
 there and needs matplotlib.  A long run resumes from a checkpoint through
 `run_demo(cfg, image, checkpoint_every=N, checkpoint_path=PATH)`.
 
+`--mesh DxC` runs the SAPG phase on a ('data', 'chains') mesh
+(parallel/sapg_parallel.py) and `--space-mesh S` row-splits the image over
+a ('space',) mesh (parallel/spatial.run_sapg_spatial; it forces
+fft_mode='dft' and one chain); the MAP solve then runs on each rank.  On
+`cuda` the world must hold the mesh: start the ranks with `torchrun
+--nproc-per-node=D*C` (or S), or run a 1x1 mesh in one process; a world
+smaller than the mesh raises, with no fallback to the CPU.  With `--device
+cpu` and no world set up, the CLI starts the mesh's gloo processes itself
+(the counterpart of the JAX CLI's virtual CPU mesh); rank 0 prints and
+writes the results.
+
 `--device` defaults to `cuda`; a CUDA request on a machine without a card
-raises.  Flags of the JAX CLI that are not ported yet (`--mesh`,
-`--space-mesh`) are absent.
+raises.
 """
 from __future__ import annotations
 
@@ -38,11 +48,13 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from semiblind_tv_tpu_torch.metrics import metrics
 from semiblind_tv_tpu_torch.runtime.checkpoint import save_results
@@ -68,6 +80,8 @@ def run_demo(
     solver: str = "salsa",
     checkpoint_every: Optional[int] = None,
     checkpoint_path: Optional[str] = None,
+    mesh=None,
+    space_mesh=None,
 ):
     """Run the full experiment; returns (results dict, SAPGResult,
     SALSAResult or FISTAResult, Problem).
@@ -85,7 +99,13 @@ def run_demo(
     source, see sapg/estimator.py) replace those draws — the tests inject
     the JAX package's draws through them.  plain=True runs the kernels'
     plain PyTorch versions on any device (the kernel-vs-plain comparison
-    on the card)."""
+    on the card).
+
+    mesh: a ('data', 'chains') DeviceMesh — the SAPG phase runs sharded
+    over its chains axis (run_sapg(mesh=)).  space_mesh: a ('space',)
+    DeviceMesh — the SAPG phase row-splits the image over it
+    (run_sapg_spatial; one chain, plain PyTorch).  Every rank of the mesh
+    calls run_demo alike."""
     if solver not in ("salsa", "fista"):
         raise ValueError(f"solver must be 'salsa' or 'fista', got {solver!r}")
     device = resolve_device(device)
@@ -94,9 +114,16 @@ def run_demo(
     problem = build_problem(image, cfg, gen, dtype=dtype, device=device, noise=obs_noise)
 
     t0 = time.perf_counter()
-    sapg = run_sapg(problem, gen, n_chains=n_chains, noise=noise,
-                    route="plain" if plain else None,
-                    checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path)
+    if space_mesh is not None:
+        from semiblind_tv_tpu_torch.parallel.spatial import run_sapg_spatial
+
+        sapg = run_sapg_spatial(problem, space_mesh, gen, noise=noise,
+                                checkpoint_every=checkpoint_every,
+                                checkpoint_path=checkpoint_path)
+    else:
+        sapg = run_sapg(problem, gen, n_chains=n_chains, noise=noise,
+                        route="plain" if plain else None, mesh=mesh,
+                        checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path)
     sapg_time = time.perf_counter() - t0
 
     theta_EB = sapg.theta_EB
@@ -166,6 +193,8 @@ def run_demo(
         "Lf": float(problem.Lf),
         "ev_max": float(problem.ev_max),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "mesh": None if mesh is None else "x".join(str(v) for v in mesh.mesh.shape),
+        "space_mesh": None if space_mesh is None else space_mesh.size(),
     }
     return results, sapg, salsa, problem
 
@@ -265,7 +294,24 @@ def main(argv=None):
                    help="draw the Langevin noise inside the step kernel from per-chain "
                         "seeds (an extension: a different, equally valid noise "
                         "realisation; off on the CPU and at 1024²)")
+    p.add_argument("--mesh", default=None, metavar="DxC",
+                   help="run the SAPG phase sharded on a data x chains mesh, e.g. --mesh 1x4 "
+                        "(--chains a multiple of C, else C)")
+    p.add_argument("--space-mesh", type=int, default=None, metavar="S",
+                   help="row-split the image over a ('space',) mesh of S ranks for the SAPG "
+                        "phase (run_sapg_spatial; forces fft_mode=dft, one chain)")
     args = p.parse_args(argv)
+    if args.mesh is not None and args.space_mesh:
+        p.error("--mesh and --space-mesh exclude each other")
+    mesh_shape = None
+    if args.mesh is not None:
+        mesh_shape = tuple(int(v) for v in args.mesh.lower().split("x"))
+    ranks = args.space_mesh or (mesh_shape[0] * mesh_shape[1] if mesh_shape else 1)
+    if ranks > 1 and torch.device(args.device).type == "cpu" and not _in_world():
+        # the mesh's gloo processes, started here; rank 0 returns the results
+        from semiblind_tv_tpu_torch.runtime.distributed import spawn
+
+        return spawn(_demo_rank, ranks, (list(argv) if argv is not None else sys.argv[1:],))[0]
     if args.plots:
         if args.out is None:
             p.error("--plots writes its figures to --out DIR")
@@ -290,6 +336,9 @@ def main(argv=None):
         sapg_over["sigma_log_scale"] = True
     if args.psf_log_scale:
         sapg_over["psf_log_scale"] = True
+    if args.space_mesh:
+        # the spatial estimator's transforms are the matmul DFTs
+        sapg_over["fft_mode"] = "dft"
     if sapg_over:
         cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **sapg_over))
 
@@ -300,10 +349,27 @@ def main(argv=None):
     torch.set_float32_matmul_precision("highest")
 
     dtype = torch.float64 if args.f64 else torch.float32
+    own_world = not _in_world()   # a one-process world the mesh below makes
+    mesh = space_mesh = None
+    if mesh_shape is not None:
+        from semiblind_tv_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(*mesh_shape, device_type=torch.device(args.device).type)
+        if args.chains % mesh_shape[1] != 0:
+            args.chains = mesh_shape[1]   # one chain a chains-rank by default
+    if args.space_mesh:
+        from semiblind_tv_tpu_torch.parallel.mesh import make_spatial_mesh
+
+        space_mesh = make_spatial_mesh(args.space_mesh, device_type=torch.device(args.device).type)
     image = load_image(args.image, args.image_dir, size=args.size)
     results, sapg, salsa, problem = run_demo(
-        cfg, image, n_chains=args.chains, dtype=dtype, device=args.device, solver=args.solver
+        cfg, image, n_chains=args.chains, dtype=dtype, device=args.device, solver=args.solver,
+        mesh=mesh, space_mesh=space_mesh,
     )
+    if own_world and _in_world():
+        dist.destroy_process_group()
+    if _in_world() and dist.get_rank() != 0:
+        return results
     print(json.dumps(results, indent=2))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -313,6 +379,15 @@ def main(argv=None):
         if args.plots:
             save_plots(args.out, results, sapg, salsa, problem)
     return results
+
+
+def _in_world() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _demo_rank(rank, argv):
+    """One rank of a CPU mesh the CLI started: the same main, in the world."""
+    return main(argv)
 
 
 if __name__ == "__main__":

@@ -113,7 +113,9 @@
 // prox forms read g, lam and, warm, px_in/py_in, and write f and, when
 // given, px_out/py_out.  The step forms read x, prox, grad, z or seeds,
 // gamma, lam_step (λ of the update), sigma2 (null: 1), take lam = λθ, write
-// xn (which is then g) and tv, and f is proxn.
+// xn (which is then g) and tv, and f is proxn.  Each scalar is read for
+// chain b at scalar[b · stride]: stride 0 shares one value, 1 reads a (B,)
+// vector (the problems of a sharded run, each with its own γ, λ, θ, σ²).
 struct ResidentParams {
   const float* g;
   const float* lam;
@@ -139,6 +141,7 @@ struct ResidentParams {
   int B, M, N, TX, T, C, max_iter, positivity;
   int K;   // blocks of a chain: T (resident form) or the grid (walk form)
   int S;   // tiles of the chains of a group, C·T: border records and partials a parity
+  int lam_s, gamma_s, lam_step_s, sigma2_s;   // the scalars' chain strides (0 or 1)
   float tau, tol;
 };
 
@@ -657,9 +660,9 @@ __device__ __forceinline__ void step_prologue(Xch& x, const Pos& ps, const Resid
   in.z = P.z != nullptr ? P.z + off : nullptr;
   in.k0 = P.z == nullptr ? (uint32_t)P.seeds[2 * b] : 0u;
   in.k1 = P.z == nullptr ? (uint32_t)P.seeds[2 * b + 1] : 0u;
-  in.gamma = *P.gamma;
-  in.lam = *P.lam_step;
-  in.sigma2 = P.sigma2 != nullptr ? *P.sigma2 : 1.0f;
+  in.gamma = P.gamma[b * P.gamma_s];
+  in.lam = P.lam_step[b * P.lam_step_s];
+  in.sigma2 = P.sigma2 != nullptr ? P.sigma2[b * P.sigma2_s] : 1.0f;
   in.s2g = sqrt_rn_exact(2.0f * in.gamma);
   in.N = P.N;
   in.positivity = P.positivity;
@@ -786,7 +789,7 @@ template <bool STEP>
 __device__ __forceinline__ void run_chain(Xch& x, const Pos& ps, const ResidentParams& P, int b,
                                           int slot, int tile, int& arrivals) {
   const size_t off = (size_t)b * P.M * P.N;
-  const float lam = *P.lam;
+  const float lam = P.lam[b * P.lam_s];
   const float* gsrc = STEP ? P.xn + off : P.g + off;
   const float* p1f = (!STEP && P.px_in != nullptr) ? P.px_in + off : nullptr;
   const float* p2f = (!STEP && P.py_in != nullptr) ? P.py_in + off : nullptr;
@@ -865,7 +868,7 @@ __device__ __forceinline__ void run_chain_walk(Xch& x, const ResidentParams& P, 
   if (STEP) {
     x.warr[t] = arrivals;
     for (x.wtile[t] = blockIdx.x; fresh(x.wtile[t]) < P.T; x.wtile[t] = fresh(x.wtile[t]) + P.K) {
-      step_prologue(x, place(P, fresh(x.wtile[t])), P, b, *P.lam);
+      step_prologue(x, place(P, fresh(x.wtile[t])), P, b, P.lam[b * P.lam_s]);
       if (t == 0) partials(P, 1, fresh(x.warr[t]) & 1)[fresh(x.wtile[t])] = block_part(x.wtv);
     }
     arrivals = fresh(x.warr[t]);
@@ -886,7 +889,7 @@ __device__ __forceinline__ void run_chain_walk(Xch& x, const ResidentParams& P, 
       {
         const Pos ps = place(P, fresh(x.wtile[t]));
         halo_table(x, ps, P, 0);
-        load_glam(x, ps, P, fresh(x.wg), *P.lam);
+        load_glam(x, ps, P, fresh(x.wg), P.lam[b * P.lam_s]);
         load_duals(ps, P, s == 0 ? fresh(x.wp1f) : fresh(x.w1),
                    s == 0 ? fresh(x.wp2f) : fresh(x.w2), p1, p2);
         publish_ends(x, ps, p1, p2);
@@ -933,7 +936,7 @@ __device__ __forceinline__ void run_chain_walk(Xch& x, const ResidentParams& P, 
     publish_ends(x, ps, p1, p2);
     gather(x, ps, P, fresh(x.wp1f), fresh(x.wp2f), n == 0 ? -1 : (arrivals - 1) & 1, nullptr,
            nullptr);
-    assemble(x, ps, P, off, fresh(x.wg), *P.lam, p1, p2);
+    assemble(x, ps, P, off, fresh(x.wg), P.lam[b * P.lam_s], p1, p2);
     __syncthreads();   // the exchange is rewritten by the next tile
   }
   if (blockIdx.x == 0 && t == 0) {
@@ -1046,13 +1049,15 @@ int sb_num_tiles(int M, int N) { return ((N + TX - 1) / TX) * ((M + TY - 1) / TY
 // call (the kernel leaves them zero).  chains: chains a group; grid: chains
 // × tiles a chain (resident form), or fewer blocks than one chain's tiles
 // with chains = 1 (walk form) (ops/tv_cuda.py::resident_geometry).
+// strides: bit 0 set, lam is a (B,) vector, one λ a chain; clear, one value.
 int sb_chambolle_prox(const float* g, const float* lam, const float* px_in, const float* py_in,
                       float* f, float* px_out, float* py_out, int* iters, float* err,
                       int* ws_int, float* ws_f, int B, int M, int N, int chains, int grid,
-                      int max_iter, float tau, float tol, void* stream) {
+                      int max_iter, float tau, float tol, int strides, void* stream) {
   ResidentParams P{};
   P.g = g;
   P.lam = lam;
+  P.lam_s = strides & 1;
   P.px_in = px_in;
   P.py_in = py_in;
   P.f = f;
@@ -1077,14 +1082,15 @@ int sb_chambolle_prox(const float* g, const float* lam, const float* px_in, cons
 // Kernels B and C (and the σ² step of D and E): xn = [abs](x + γ(prox−x)/λ −
 // γ·(grad/σ²) + √(2γ)·Z) with Z = z, or, z null, drawn from seeds ((B, 2)
 // int32); tv = its circular TV; proxn = xn − λθ·div p after n_sweeps fresh
-// sweeps on xn/(λθ).  sigma2 may be null (σ² = 1).  Workspace and geometry
-// as sb_chambolle_prox.
+// sweeps on xn/(λθ).  sigma2 may be null (σ² = 1).  strides: bits 0–3 set
+// make gamma, lam, lam_theta and sigma2 (B,) vectors, one value a chain.
+// Workspace and geometry as sb_chambolle_prox.
 int sb_myula_step(const float* x, const float* prox, const float* grad, const float* z,
                   const int* seeds, const float* gamma, const float* lam,
                   const float* lam_theta, const float* sigma2, float* xn, float* proxn,
                   float* tv, int* iters, float* err, int* ws_int, float* ws_f, int B, int M,
                   int N, int chains, int grid, int n_sweeps, float tau, float tol,
-                  int positivity, void* stream) {
+                  int positivity, int strides, void* stream) {
   if ((z == nullptr) == (seeds == nullptr)) return cudaErrorInvalidValue;
   ResidentParams P{};
   P.lam = lam_theta;
@@ -1097,6 +1103,10 @@ int sb_myula_step(const float* x, const float* prox, const float* grad, const fl
   P.gamma = gamma;
   P.lam_step = lam;
   P.sigma2 = sigma2;
+  P.gamma_s = strides & 1;
+  P.lam_step_s = (strides >> 1) & 1;
+  P.lam_s = (strides >> 2) & 1;
+  P.sigma2_s = (strides >> 3) & 1;
   P.xn = xn;
   P.tv = tv;
   P.iters = iters;

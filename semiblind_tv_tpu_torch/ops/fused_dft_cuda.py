@@ -50,10 +50,11 @@ import torch
 
 from semiblind_tv_tpu_torch.ops.tv import chambolle_prox, tv_norm
 from semiblind_tv_tpu_torch.ops.tv_cuda import (
+    chain_scalars,
     check_fields,
     check_status,
+    per_chain,
     resident_launch,
-    scalar_on,
 )
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
@@ -94,7 +95,9 @@ def myula_prox_tv_irdft_plain(
     n_sweeps: int = 25, tau: float = 0.249, tol: float = 1e-3, positivity: bool = True,
     return_iters: bool = False,
 ):
-    """The plain PyTorch version of kernel E (the body of _kernel_irdft)."""
+    """The plain PyTorch version of kernel E (the body of _kernel_irdft); a
+    scalar of one value a chain broadcasts over its chain."""
+    gamma, lam, lam_theta, sigma2 = (per_chain(v, x) for v in (gamma, lam, lam_theta, sigma2))
     grad = _grad_plain(ghat, rdft_mats, sigma2)
     xn = myula_kernel_step(x, prox_cache, grad, gamma, lam, z, positivity)
     proxn, st = chambolle_prox(xn, lam_theta, n_sweeps, tau=tau, tol=tol)
@@ -400,8 +403,8 @@ def _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_
     lib = load_library()
     with torch.cuda.device(x.device):
         packed = packed_factors(rdft_mats)
-        scal = [scalar_on(v, x, n) for v, n in ((gamma, "gamma"), (lam, "lam"),
-                                                (lam_theta, "lam_theta"), (sigma2, "sigma2"))]
+        scal, strides = chain_scalars(((gamma, "gamma"), (lam, "lam"), (lam_theta, "lam_theta"),
+                                       (sigma2, "sigma2")), x)
         dev = x.device
         f32 = dict(dtype=torch.float32, device=dev)
         flat, layout, plan, ws_floats = _gemm_buffers(B, M, N, forward, dev)
@@ -415,7 +418,7 @@ def _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_
         geo, ws_int, ws_f, stream = resident_launch(x)
         tail = (iters.data_ptr(), err.data_ptr(), ws_int.data_ptr(), ws_f.data_ptr(),
                 ctypes.addressof(plan), ws_floats, B, M, N, geo.chains, geo.grid, int(n_sweeps),
-                float(tau), float(tol), int(bool(positivity)), stream)
+                float(tau), float(tol), int(bool(positivity)), strides, stream)
         head = (torch.view_as_real(ghat).data_ptr(), x.data_ptr(), prox_cache.data_ptr(),
                 z.data_ptr(), packed["fac_inv"].data_ptr(), packed["w_t"].data_ptr())
         mid = (*(s.data_ptr() for s in scal), xn.data_ptr(), proxn.data_ptr(), tv.data_ptr())

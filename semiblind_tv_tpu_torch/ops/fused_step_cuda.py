@@ -15,7 +15,9 @@ block computes xn of its tile (and of the row and column around it, again
 from the inputs), writes xn, and keeps xn/(λθ) in registers; the TV
 partials ride on the chain's first barrier; then the sweeps and the
 assembly of proxn, all in one launch.  γ, λ and λθ are read from device
-memory, so the SA loop never copies them to the host.
+memory, so the SA loop never copies them to the host; each is one value
+for every chain or one a chain (a (B,) tensor: the problems of a sharded
+run, tv_cuda.scalar_on), as the JAX kernel's batching rule gives it.
 `myula_prox_tv_emulated` replays the launch's sums (the TV's and the
 residuals', in the kernel's order) on the CPU.
 
@@ -54,12 +56,13 @@ from semiblind_tv_tpu_torch.ops.rng import philox_normals
 from semiblind_tv_tpu_torch.ops.tv import chambolle_prox, tv_norm
 from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import STATE_COLS, blocked_geometry, check_geometry
 from semiblind_tv_tpu_torch.ops.tv_cuda import (
+    chain_scalars,
     chain_total,
     chambolle_prox_resident_emulated,
     check_fields,
     check_status,
+    per_chain,
     resident_launch,
-    scalar_on,
     tile_sums,
 )
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
@@ -93,7 +96,9 @@ def myula_prox_tv_plain(
     n_sweeps: int = 25, tau: float = 0.249, tol: float = 1e-3, positivity: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: the JAX package's unfused path
-    (myula_kernel_step → chambolle_prox from fresh duals → tv_norm)."""
+    (myula_kernel_step → chambolle_prox from fresh duals → tv_norm); a
+    scalar of one value a chain broadcasts over its chain."""
+    gamma, lam, lam_theta = (per_chain(v, x) for v in (gamma, lam, lam_theta))
     xn = myula_kernel_step(x, prox_cache, grad_f, gamma, lam, z, positivity)
     proxn, _ = chambolle_prox(xn, lam_theta, n_sweeps, tau=tau, tol=tol)
     return xn, proxn, tv_norm(xn)
@@ -109,7 +114,8 @@ def myula_prox_tv_emulated(
     tiles' partials (tile_sums) of √(dh² + dv²), then the prox's schedule
     (chambolle_prox_resident_emulated) on xn with λθ.  Returns (xn, proxn,
     tv, sweeps run)."""
-    xn = myula_kernel_step(x, prox_cache, grad_f, gamma, lam, z, positivity)
+    xn = myula_kernel_step(x, prox_cache, grad_f, per_chain(gamma, x), per_chain(lam, x), z,
+                           positivity)
     dh = xn - torch.roll(xn, 1, dims=-1)
     dv = xn - torch.roll(xn, 1, dims=-2)
     t = torch.sqrt(dh * dh + dv * dv)
@@ -141,8 +147,8 @@ def _launch_step(x, prox_cache, grad_f, z, seeds, gamma, lam, lam_theta, n_sweep
     lib = load_library()
     B, M, N = x.shape
     with torch.cuda.device(x.device):
-        scal = [scalar_on(v, x, n) for v, n in
-                ((gamma, "gamma"), (lam, "lam"), (lam_theta, "lam_theta"))]
+        scal, strides = chain_scalars(((gamma, "gamma"), (lam, "lam"), (lam_theta, "lam_theta")),
+                                      x)
         geo, ws_int, ws_f, stream = resident_launch(x)
         dev = x.device
         xn = torch.empty_like(x)
@@ -156,7 +162,7 @@ def _launch_step(x, prox_cache, grad_f, z, seeds, gamma, lam, lam_theta, n_sweep
             *(s.data_ptr() for s in scal), None,
             xn.data_ptr(), proxn.data_ptr(), tv.data_ptr(), iters.data_ptr(), err.data_ptr(),
             ws_int.data_ptr(), ws_f.data_ptr(), B, M, N, geo.chains, geo.grid, int(n_sweeps),
-            float(tau), float(tol), int(bool(positivity)), stream,
+            float(tau), float(tol), int(bool(positivity)), strides, stream,
         )
     check_status(code, what)
     if squeeze:
@@ -245,7 +251,8 @@ def myula_prox_tv_blocked_plain(
     if z is None:
         z = philox_normals(seeds, x.shape[-2:], x.dtype)
     return myula_prox_tv_plain(
-        x, prox_cache, grad_f / sigma2, z, gamma, lam, lam_theta, n_sweeps, tau, tol, positivity
+        x, prox_cache, grad_f / per_chain(sigma2, x), z, gamma, lam, lam_theta, n_sweeps, tau, tol,
+        positivity,
     )
 
 
@@ -298,8 +305,8 @@ def myula_prox_tv_blocked(
     lib = load_library()
     n_part = max(B * K * -(-M // TYb) * -(-N // TXb), B * lib.sb_num_tiles(M, N))
     with torch.cuda.device(x.device):
-        scal = [scalar_on(v, x, n) for v, n in
-                ((gamma, "gamma"), (lam, "lam"), (lam_theta, "lam_theta"), (sigma2, "sigma2"))]
+        scal, strides = chain_scalars(((gamma, "gamma"), (lam, "lam"), (lam_theta, "lam_theta"),
+                                       (sigma2, "sigma2")), x)
         dev = x.device
         xn = torch.empty_like(x)
         proxn = torch.empty_like(x)
@@ -318,7 +325,7 @@ def myula_prox_tv_blocked(
             px_buf.data_ptr(), py_buf.data_ptr(), state.data_ptr(), err.data_ptr(),
             partials.data_ptr(),
             B, M, N, TYb, TXb, K, int(n_sweeps), float(tau), float(tol),
-            int(bool(positivity)), stream,
+            int(bool(positivity)), strides, stream,
         )
     check_status(code, "myula_prox_tv_blocked")
     BLOCKED_LAUNCHES += 1

@@ -32,6 +32,7 @@ from semiblind_tv_tpu_torch.ops.tv_cuda import (
     chambolle_prox_plain,
     check_fields,
     check_status,
+    per_chain,
     scalar_on,
 )
 
@@ -157,7 +158,7 @@ def chambolle_prox_blocked(
     lib = load_library()
     ntiles = -(-M // TYb) * -(-N // TXb)
     with torch.cuda.device(g.device):
-        lam_t = scalar_on(lam, g, "lam")
+        lam_t, strides = scalar_on(lam, g, "lam")
         dev = g.device
         px_buf = torch.empty((2, B, M, N), dtype=torch.float32, device=dev)
         py_buf = torch.empty_like(px_buf)
@@ -176,7 +177,7 @@ def chambolle_prox_blocked(
             partials.data_ptr(), f.data_ptr(),
             px.data_ptr() if px is not None else None,
             py.data_ptr() if py is not None else None,
-            B, M, N, TYb, TXb, K, int(max_iter), float(tau), float(tol), stream,
+            B, M, N, TYb, TXb, K, int(max_iter), float(tau), float(tol), strides, stream,
         )
     check_status(code, "chambolle_prox_blocked")
     LAUNCHES += 1
@@ -280,6 +281,8 @@ def chambolle_prox_blocked_emulated(
         raise ValueError("return_state=False requires duals=None (fresh duals)")
     B, M, N = g.shape
     TYb, TXb, K = check_geometry(geometry or blocked_geometry(max_iter), M, N, max_iter)
+    lam = per_chain(lam, g)
+    lam_b = (lambda b: lam[b]) if torch.is_tensor(lam) and lam.ndim == 3 else (lambda b: lam)
     wh, ww, tiles = _windows(M, N, TYb, TXb, K)
     T = len(tiles)
     rows = torch.tensor([[h0 + r for r in range(wh)] for h0, *_ in tiles])
@@ -311,7 +314,7 @@ def chambolle_prox_blocked_emulated(
 
     def run_pass(b, s_from, s_to, lim, record):
         sx_img, sy_img = source(b, s_from)
-        glam = gather(g[b] / lam)   # elementwise: the same values as per pixel
+        glam = gather(g[b] / lam_b(b))   # elementwise: the same values as per pixel
         px, py = gather(sx_img), gather(sy_img)
         for s in range(lim):
             u = _window_u(px, py, glam, bottom, right)

@@ -36,7 +36,7 @@ __all__ = [
     "chambolle_prox_cuda", "chambolle_prox_plain", "chambolle_prox_resident_emulated",
     "dual_ascent_loop", "neumann_div", "resident_geometry", "resident_capacity",
     "resident_occupancy", "resident_workspace", "resident_floats", "barrier_error",
-    "tile_sums", "chain_total",
+    "tile_sums", "chain_total", "scalar_on", "chain_scalars", "per_chain",
     "LAUNCHES", "FRESH_LAUNCHES", "TILE_ROWS", "TILE_COLS",
 ]
 
@@ -84,24 +84,58 @@ def chambolle_prox_plain(
     """The plain PyTorch version of the kernel (same signature)."""
     if not return_state and duals is not None:
         raise ValueError("return_state=False requires duals=None (fresh duals)")
-    f, st = chambolle_prox(g, lam, max_iter, tau=tau, tol=tol, duals=duals)
+    f, st = chambolle_prox(g, per_chain(lam, g), max_iter, tau=tau, tol=tol, duals=duals)
     if not return_state:
         zero = torch.zeros_like(f)
         st = ChambolleState(px=zero, py=zero, iters=st.iters, err=st.err)
     return f, st
 
 
-def scalar_on(value, like: torch.Tensor, name: str) -> torch.Tensor:
-    """A 0-d f32 tensor on `like`'s device for a kernel's scalar pointer.
-    A Python number becomes a fill launch (no host-to-device copy)."""
+def _chains(like: torch.Tensor) -> int:
+    return like.shape[0] if like.ndim == 3 else 1
+
+
+def scalar_on(value, like: torch.Tensor, name: str) -> Tuple[torch.Tensor, int]:
+    """(tensor, chain stride) of a kernel's scalar pointer on `like`'s
+    device: a Python number (a fill launch, no host-to-device copy) or a
+    one-element float32 tensor gives a 0-d tensor that every chain reads
+    (stride 0); a float32 tensor of one value for each of like's B chains,
+    (B,) or (B, 1, 1), gives a (B,) vector that chain b reads at b (stride
+    1) — the problems of a sharded run, each with its own γ, λ, θ and σ²."""
     if torch.is_tensor(value):
-        if value.device != like.device or value.dtype != torch.float32 or value.numel() != 1:
+        B = _chains(like)
+        if value.device != like.device or value.dtype != torch.float32 or value.numel() not in (
+                1, B):
             raise ValueError(
-                f"{name} must be a one-element float32 tensor on {like.device}, "
+                f"{name} must be a float32 tensor of 1 or {B} values on {like.device}, "
                 f"got {value.dtype} {tuple(value.shape)} on {value.device}"
             )
-        return value.reshape(()).contiguous()
-    return torch.full((), float(value), dtype=torch.float32, device=like.device)
+        if value.numel() == 1:
+            return value.reshape(()).contiguous(), 0
+        return value.reshape(B).contiguous(), 1
+    return torch.full((), float(value), dtype=torch.float32, device=like.device), 0
+
+
+def chain_scalars(pairs, like: torch.Tensor) -> Tuple[list, int]:
+    """scalar_on of each (value, name) pair: the tensors and the strides as
+    the kernels' bit mask (bit i set: pair i is one value a chain)."""
+    tensors, strides = [], 0
+    for i, (value, name) in enumerate(pairs):
+        t, s = scalar_on(value, like, name)
+        tensors.append(t)
+        strides |= s << i
+    return tensors, strides
+
+
+def per_chain(value, like: torch.Tensor):
+    """The plain versions' form of a scalar: a tensor of one value for each
+    of like's B chains (B > 1) as (B, 1, 1), which broadcasts against the
+    (B, M, N) fields as the kernels read it; anything else as it is."""
+    if torch.is_tensor(value) and like.ndim == 3 and value.ndim >= 1:
+        B = like.shape[0]
+        if value.numel() == B and B > 1:
+            return value.reshape(B, 1, 1)
+    return value
 
 
 def check_fields(names, tensors, like: torch.Tensor) -> None:
@@ -264,7 +298,8 @@ def chambolle_prox_cuda(
 
     Signature of tv_pallas.chambolle_prox_pallas without `interpret`.
     return_state=False (fresh duals only) returns zero px/py, as the JAX
-    kernel does.  λ may be a Python number or a one-element device tensor."""
+    kernel does.  λ may be a Python number, a one-element device tensor or
+    one value a chain (scalar_on)."""
     global LAUNCHES, FRESH_LAUNCHES
     if g.device.type == "cpu":
         return chambolle_prox_plain(g, lam, max_iter, tau, tol, duals, return_state)
@@ -289,7 +324,7 @@ def chambolle_prox_cuda(
     lib = load_library()
     B, M, N = g.shape
     with torch.cuda.device(g.device):
-        lam_t = scalar_on(lam, g, "lam")
+        lam_t, strides = scalar_on(lam, g, "lam")
         geo, ws_int, ws_f, stream = resident_launch(g)
         iters = torch.empty((B,), dtype=torch.int32, device=g.device)
         err = torch.empty((B,), dtype=torch.float32, device=g.device)
@@ -303,7 +338,7 @@ def chambolle_prox_cuda(
             f.data_ptr(), px.data_ptr() if px is not None else None,
             py.data_ptr() if py is not None else None, iters.data_ptr(), err.data_ptr(),
             ws_int.data_ptr(), ws_f.data_ptr(), B, M, N, geo.chains, geo.grid, int(max_iter),
-            float(tau), float(tol), stream,
+            float(tau), float(tol), strides, stream,
         )
     check_status(code, "chambolle_prox_cuda")
     LAUNCHES += 1
@@ -414,6 +449,7 @@ def chambolle_prox_resident_emulated(
         raise ValueError("return_state=False requires duals=None (fresh duals)")
     B, M, N = g.shape
     geo = resident_geometry(B, M, N, capacity)
+    lam = per_chain(lam, g)
     px_all = torch.zeros_like(g) if duals is None else duals[0].clone()
     py_all = torch.zeros_like(g) if duals is None else duals[1].clone()
     iters = torch.zeros((B,), dtype=torch.int32)
@@ -425,7 +461,7 @@ def chambolle_prox_resident_emulated(
             if b >= B:
                 continue
             seen.append(b)
-            glam = g[b] / lam
+            glam = g[b] / (lam[b] if torch.is_tensor(lam) and lam.ndim == 3 else lam)
             px, py = px_all[b], py_all[b]
             for s in range(max_iter):
                 px, py, r2 = _sweep(px, py, glam, tau)

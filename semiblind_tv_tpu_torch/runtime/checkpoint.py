@@ -1,4 +1,4 @@
-"""Checkpoint / results persistence (copy of the npz path of
+"""Checkpoint / results persistence (port of
 `semiblind_tv_tpu/runtime/checkpoint.py`, which this package may not import:
 importing any `semiblind_tv_tpu` submodule pulls in jax).
 
@@ -16,8 +16,15 @@ SAPG_algorithm_Guassian.m:250-306, SALSA/runStats.m).  Here:
     driven by run_sapg's checkpoint_every/checkpoint_path).
   * `save_checkpoint_arrays` / `load_checkpoint_arrays` — the persistence
     layer under the mid-run checkpoint: a flat {name: ndarray} dict written
-    atomically as NPZ.  The JAX package's Orbax backend is not ported
-    (`backend="orbax"` raises NotImplementedError).
+    atomically as NPZ (`backend="npz"`), or as a directory
+    (`backend="orbax"`, the JAX package's name for its Orbax backend, kept
+    for the migration surface; Orbax is a JAX library and is not used):
+    `torch.distributed.checkpoint` writes it, every rank of a
+    multi-process world its own arrays (each rank keys its arrays apart:
+    the writer keeps one copy of a key that several ranks hold), the
+    directory written under `<path>.tmp` and renamed by rank 0 when every
+    rank is done.  `load_checkpoint_arrays` reads a directory as that
+    backend and a file as NPZ, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import dataclasses
 import json
 import os
 import shutil
+import warnings
 from typing import Any, Dict
 
 import numpy as np
@@ -40,28 +48,77 @@ __all__ = [
 
 
 def _check_backend(backend: str) -> None:
-    if backend == "orbax":
-        raise NotImplementedError("the Orbax checkpoint backend is not ported; use 'npz'")
-    if backend != "npz":
+    if backend not in ("npz", "orbax"):
         raise ValueError(f"unknown checkpoint backend {backend!r} (npz|orbax)")
 
 
+def _world():
+    """(rank, world size) of the default process group, (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier(n: int) -> None:
+    if n > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 def save_checkpoint_arrays(path: str, arrays: Dict[str, np.ndarray], backend: str = "npz") -> None:
-    """Atomically persist a flat dict of host arrays as NPZ."""
+    """Atomically persist a flat dict of host arrays as NPZ or a directory.
+    The directory backend is collective in a multi-process world: every
+    rank calls it with its own arrays."""
     _check_backend(backend)
-    tmp = path + ".tmp.npz"
-    np.savez_compressed(tmp, **arrays)
-    os.replace(tmp, path)
+    if backend == "npz":
+        tmp = path + ".tmp.npz"
+        np.savez_compressed(tmp, **arrays)
+        os.replace(tmp, path)
+        return
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    rank, n = _world()
+    tmp = path + ".tmp"
+    if rank == 0 and os.path.isdir(tmp):
+        shutil.rmtree(tmp)
+    _barrier(n)
+    state = {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+    with warnings.catch_warnings():   # "assuming ... a single process": it is one
+        warnings.simplefilter("ignore", UserWarning)
+        dcp.save(state, checkpoint_id=tmp, no_dist=n == 1)
+    _barrier(n)
+    if rank == 0:
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    _barrier(n)
 
 
-def load_checkpoint_arrays(path: str, backend: str | None = None) -> Dict[str, np.ndarray]:
+def load_checkpoint_arrays(path: str, backend: str | None = None,
+                           prefix: str = "") -> Dict[str, np.ndarray]:
     """Load a checkpoint dict; backend auto-detected from the path when None
-    (directory → orbax, file → npz)."""
+    (directory → orbax, file → npz).  Only the arrays whose names start
+    with `prefix`; each rank reads the directory on its own."""
     if backend is None:
         backend = "orbax" if os.path.isdir(path) else "npz"
     _check_backend(backend)
-    with np.load(path) as z:
-        return {k: z[k] for k in z.files}
+    if backend == "npz":
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files if k.startswith(prefix)}
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+             for k, m in meta.items() if k.startswith(prefix)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        dcp.load(state, checkpoint_id=path, no_dist=True)
+    return {k: v.numpy() for k, v in state.items()}
 
 
 def delete_checkpoint(path: str) -> None:

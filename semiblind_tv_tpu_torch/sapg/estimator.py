@@ -1,5 +1,4 @@
-"""Generic SAPG estimator (port of `semiblind_tv_tpu/sapg/estimator.py`,
-one device).
+"""Generic SAPG estimator (port of `semiblind_tv_tpu/sapg/estimator.py`).
 
 Algorithm (reference SAPG_algorithm_Guassian.m):
   warm-up:  `warmup` MYULA steps at fixed hyperparameters          (:67-93)
@@ -40,8 +39,8 @@ fuse_dft, fuse_irdft, in_kernel_rng and track_posterior_moments (Welford's
 running posterior mean and variance of the post-burn-in samples, updated
 in place from the step's new sample, so on every kernel route).
 
-Checkpoint and resume (run_sapg's checkpoint_every/checkpoint_path, npz
-only): the main scan runs in segments of checkpoint_every iterations and
+Checkpoint and resume (run_sapg's checkpoint_every/checkpoint_path): the
+main scan runs in segments of checkpoint_every iterations and
 the carry, the traces so far, the warm-up trace and the state of the
 torch.Generator that draws the noise are saved after each one; a run that
 finds a checkpoint at checkpoint_path skips the warm-up and resumes there,
@@ -49,7 +48,10 @@ on the same trajectory as an uninterrupted run.  A segment whose traces go
 non-finite is rerun from the last checkpoint (run_segmented_scan).
 
 Chains live on the leading dimension; the per-chain SA statistics are
-averaged before the hyperparameter update.  θ, σ² and the PSF parameters
+averaged before the hyperparameter update.  `run_sapg(mesh=)` and
+parallel/sapg_parallel.py run the problem-batched form of the same step
+(make_general_sapg_step(problems=D, chains_group=...)) on each rank of a
+('data', 'chains') mesh.  θ, σ² and the PSF parameters
 are 0-d device tensors, the SA updates use torch.clamp, and the scalar
 traces go into preallocated device tensors that are copied to the host
 once, after the loop: nothing inside the loop waits for the device.
@@ -70,6 +72,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from semiblind_tv_tpu_torch.ops.fused_dft_cuda import myula_prox_tv_dft, myula_prox_tv_irdft
 from semiblind_tv_tpu_torch.ops.fused_step_cuda import (
@@ -80,7 +83,7 @@ from semiblind_tv_tpu_torch.ops.fused_step_cuda import (
 )
 from semiblind_tv_tpu_torch.ops.tv import tv_norm
 from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_prox_blocked
-from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain
+from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain, per_chain
 from semiblind_tv_tpu_torch.runtime.checkpoint import load_checkpoint_arrays, save_checkpoint_arrays
 from semiblind_tv_tpu_torch.runtime.problem import Problem
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
@@ -251,6 +254,8 @@ def make_general_sapg_step(
     cfg,
     sigma_fix: bool,
     route: Optional[str] = None,
+    problems: Optional[int] = None,
+    chains_group=None,
 ):
     """Build the per-iteration SAPG step as a function of (carry, ii, consts,
     Z) with consts = dict(yhat, gam, lam, sigma2_lo, sigma2_hi, sigma2_init)
@@ -263,7 +268,18 @@ def make_general_sapg_step(
     device tensors.  `route` overrides resolve_step_route ('plain', 'B',
     'G' or 'I'); with 'plain'
     the prox takes its plain version too — the chip smoke test compares the
-    kernels with the plain versions on the card this way."""
+    kernels with the plain versions on the card this way.
+
+    problems=D builds the problem-batched step of the sharded path (the
+    counterpart of the JAX package's vmap over a rank's problems): every
+    entry of consts has a leading (D,) axis, θ, σ² and each PSF parameter
+    are (D,), the fields are (D·C, M, N) problem-major, the kernels get γ,
+    λ, λθ and σ² as (D·C,) vectors (one launch for every chain of every
+    problem), and the trace entries are (D,).  Each SA statistic is the mean
+    over a problem's chains; with `chains_group` (a torch.distributed group
+    of S ranks holding the other chains of the same problems) it is then
+    all-reduced over the group and divided by S — lax.pmean — in one
+    all_reduce a step, on the device."""
     _check_ported(cfg)
     sapg = cfg.sapg
     dtype = blur.dtype
@@ -275,6 +291,43 @@ def make_general_sapg_step(
         raise ValueError(f"unknown step route {route!r}")
     prox_route = "plain" if route == "plain" else resolve_prox_route(blur.shape, device)
     fused = sapg.use_fused_step is not False
+
+    batched = problems is not None
+    n_group = 1 if chains_group is None else dist.get_world_size(chains_group)
+
+    def by_problem(t):
+        """(D·C, ...) as (D, C, ...) in the batched form."""
+        return t.view(problems, -1, *t.shape[1:]) if batched else t
+
+    def flat(t):
+        return t.reshape(-1, *t.shape[2:]) if batched else t
+
+    def lead(v):
+        """A per-problem quantity against by_problem's chain axis."""
+        return v[:, None] if batched else v[None]
+
+    def chains_of(v, C):
+        """A per-problem scalar as the kernels' per-chain vector."""
+        return v.repeat_interleave(C) if batched else v
+
+    def problem_means(fn, *args):
+        """The chain means of the statistics fn(*args) returns, {name: (C,)
+        tensor} of ONE problem's quantities, then their average over the
+        chains group (one all_reduce for all of them).  Batched, fn runs on
+        each problem's slice of the args and the means are stacked to (D,):
+        each problem's sums then take the shapes, and so the order, of its
+        own run (a sum over a larger batch may split otherwise, and the SA
+        loop amplifies a last-bit difference)."""
+        if batched:
+            outs = [fn(*(a[i] for a in args)) for i in range(problems)]
+            out = {k: torch.stack([torch.mean(o[k]) for o in outs]) for k in outs[0]}
+        else:
+            out = {k: torch.mean(v) for k, v in fn(*args).items()}
+        if n_group > 1:
+            packed = torch.stack(list(out.values()))
+            dist.all_reduce(packed, group=chains_group)
+            out = dict(zip(out, (packed / n_group).unbind(0)))
+        return out
 
     def fuse_dft(B):
         return resolve_fuse_dft(sapg, route, blur.fft_mode, blur.shape, B)
@@ -300,7 +353,9 @@ def make_general_sapg_step(
     def otfs(params):
         k, dks = model.kernel_and_grads(params)
         stack = torch.stack([k] + [dks[n] for n in free_names])
-        Hs = blur.otf_batched(stack)  # one batched matmul pair for all OTFs
+        # one batched matmul pair for all OTFs (of every problem, batched)
+        Hs = blur.otf_batched(stack.reshape(-1, *stack.shape[-2:]))
+        Hs = Hs.view(len(stack), *k.shape[:-2], *Hs.shape[-2:])
         return Hs[0], {n: Hs[i + 1] for i, n in enumerate(free_names)}
 
     def pnorm2(Rhat):
@@ -331,7 +386,7 @@ def make_general_sapg_step(
                 return myula_prox_tv_blocked(X, prox, grad_raw, None, gam, lam, lam_theta,
                                              sigma2, seeds=Z, **kw)
             return myula_prox_tv_blocked(X, prox, grad_raw, Z, gam, lam, lam_theta, sigma2, **kw)
-        gradF = grad_raw / sigma2
+        gradF = grad_raw / per_chain(sigma2, X)
         if fused and route == "G":
             return myula_prox_tv_blocked(X, prox, gradF, Z, gam, lam, lam_theta, **kw)
         if fused and ikr:
@@ -339,15 +394,19 @@ def make_general_sapg_step(
         if fused:
             spatial = myula_prox_tv if route == "B" else myula_prox_tv_plain
             return spatial(X, prox, gradF, Z, gam, lam, lam_theta, **kw)
-        Xn = myula_kernel_step(X, prox, gradF, gam, lam, Z, positivity)
+        Xn = myula_kernel_step(X, prox, gradF, per_chain(gam, X), per_chain(lam, X), Z, positivity)
         proxn, _ = prox_b(Xn, lam_theta)
         return Xn, proxn, tv_b(Xn)
 
     def advance(X, prox, ghat, sigma2, Z, gam, lam, lam_theta, positivity, irdft_ok):
         """(Xn, proxn, tv, Xhatn) from Ĝ = conj(H)·R̂, in the JAX package's
         branch order: kernel D, kernel E (not in the warm-up), then the
-        transforms around the spatial segment."""
+        transforms around the spatial segment.  Batched, ghat is (D, C, M,
+        Nh) and the scalars (D,): the kernels get them flat and per chain."""
         B = X.shape[0]
+        ghat = flat(ghat)
+        gam, lam, lam_theta, sigma2 = (chains_of(v, B // (problems or 1))
+                                       for v in (gam, lam, lam_theta, sigma2))
         ikr = in_kernel_rng(B)
         kw = dict(n_sweeps=sapg.chambolle_iters, tau=sapg.chambolle_tau,
                   tol=sapg.chambolle_tol, positivity=positivity)
@@ -402,19 +461,32 @@ def make_general_sapg_step(
         yhat, gam, lam = consts["yhat"], consts["gam"], consts["lam"]
         X, Xhat, prox, theta, sigma2, params = carry[:6]
         H, dHs = (H0_c, {}) if all_fixed else otfs(params)
-        Rhat = H[None] * Xhat - yhat[None]
+        Hl = H[None] if all_fixed else lead(H)
+        Rhat = Hl * by_problem(Xhat) - lead(yhat)
         # prox lag: the MYULA update uses the prox of the previous iterate,
         # and the new prox is taken at the current (pre-update) θ
         Xn, proxn, tv, Xhatn = advance(
-            X, prox, torch.conj(H)[None] * Rhat, sigma2, Z, gam, lam, lam * theta,
+            X, prox, torch.conj(Hl) * Rhat, sigma2, Z, gam, lam, lam * theta,
             sapg.positivity, True,
         )
-        Rn = H[None] * Xhatn - yhat[None]
-        res2 = pnorm2(Rn)
 
-        G_t = torch.mean(d / theta - tv)
-        G_s = torch.mean(res2 / (2.0 * sigma2 ** 2) - d / (2.0 * sigma2))
-        G_p = {n: torch.mean(pdot(dHs[n][None] * Xhatn, Rn) / sigma2) for n in free_names}
+        def chain_stats(H, Xhn, yhat, tv, theta, sigma2, *dH):
+            Rn = H[None] * Xhn - yhat[None]
+            res2 = pnorm2(Rn)
+            # the θ lag: logπ uses the pre-update θ and σ²
+            return dict(
+                G_t=d / theta - tv,
+                G_s=res2 / (2.0 * sigma2 ** 2) - d / (2.0 * sigma2),
+                **{f"G_{n}": pdot(dh[None] * Xhn, Rn) / sigma2 for n, dh in zip(free_names, dH)},
+                logPi=-res2 / (2.0 * sigma2) - theta * tv,
+                gX=tv,
+            )
+
+        Hp = H.expand(problems, *H.shape) if batched and all_fixed else H
+        stats = problem_means(chain_stats, Hp, by_problem(Xhatn), yhat, by_problem(tv), theta,
+                              sigma2, *(dHs[n] for n in free_names))
+        G_t, G_s = stats["G_t"], stats["G_s"]
+        G_p = {n: stats[f"G_{n}"] for n in free_names}
 
         delta_i = d_scale * float(ii) ** (-sapg.d_exp) / d
         if sapg.theta_log_scale:
@@ -430,7 +502,8 @@ def make_general_sapg_step(
         params_n = {}
         for s in psf_specs:
             if s.fix:
-                params_n[s.name] = fixed_vals[s.name]
+                params_n[s.name] = fixed_vals[s.name].expand(problems) if batched \
+                    else fixed_vals[s.name]
             elif sapg.psf_log_scale:
                 # log-space update with the chain-rule factor p, clipped in
                 # log space (an extension of the JAX package, opt-in)
@@ -460,16 +533,15 @@ def make_general_sapg_step(
                 consts["sigma2_lo"], consts["sigma2_hi"],
             )
 
-        # θ lag: logπ uses the pre-update θ and σ²
-        logpi = torch.mean(-res2 / (2.0 * sigma2) - theta * tv)
         trace = dict(
             theta=theta_n,
             sigma2=sigma_n,
-            logPi=logpi,
-            gX=torch.mean(tv),
+            logPi=stats["logPi"],
+            gX=stats["gX"],
             G_t=G_t,
             G_s=G_s,
-            **{f"G_{n}": G_p.get(n, zero) for n in psf_names},
+            **{f"G_{n}": G_p.get(n, zero.expand(problems) if batched else zero)
+               for n in psf_names},
             **{n: params_n[n] for n in psf_names},
         )
         carry_n = (Xn, Xhatn, proxn, theta_n, sigma_n, params_n)
@@ -485,14 +557,21 @@ def make_general_sapg_step(
         yhat, gam, lam = consts["yhat"], consts["gam"], consts["lam"]
         sigma0 = consts["sigma2_init"]
         X, Xhat, prox = carry
-        Rhat = H0_c[None] * Xhat - yhat[None]
+        Rhat = H0_c[None] * by_problem(Xhat) - lead(yhat)
         Xn, proxn, tv, Xhatn = advance(
             X, prox, torch.conj(H0_c)[None] * Rhat, sigma0, Z, gam, lam, lam * theta0_c,
             True, False,
         )
-        res2 = pnorm2(H0_c[None] * Xhatn - yhat[None])
-        logpi = torch.mean(-res2 / (2.0 * sigma0) - theta0_c * tv)
-        return (Xn, Xhatn, proxn), logpi
+        return (Xn, Xhatn, proxn), logpi_init(Xhatn, tv, consts)
+
+    def logpi_init(Xhat, tv, consts):
+        """logπ at the initial θ and σ², the mean over a problem's chains."""
+        def chain_stats(Xh, yhat, tv, sigma0):
+            res2 = pnorm2(H0_c[None] * Xh - yhat[None])
+            return dict(logPi=-res2 / (2.0 * sigma0) - theta0_c * tv)
+
+        return problem_means(chain_stats, by_problem(Xhat), consts["yhat"], by_problem(tv),
+                             consts["sigma2_init"])["logPi"]
 
     aux = dict(
         psf_names=psf_names,
@@ -507,6 +586,7 @@ def make_general_sapg_step(
         prox_route=prox_route,
         fuse_dft=fuse_dft,
         in_kernel_rng=in_kernel_rng,
+        logpi_init=logpi_init,
     )
     return step, aux
 
@@ -809,7 +889,14 @@ def run_sapg(
     seeds: the seed source of the in-kernel noise, used instead of `noise`
     where the step draws its noise in the kernel; by default
     generator_seeds(generator).
-    mesh: the JAX package's sharded path; not ported yet (raises).
+    mesh: a ('data', 'chains') DeviceMesh (parallel/mesh.make_mesh, data
+    axis 1) routes the whole run — warm-up, main scan, checkpointing, EB
+    assembly — through parallel/sapg_parallel.run_sapg_sharded with the
+    n_chains chains split over the mesh's chains axis.  Every rank of the
+    axis draws the whole (n_chains, M, N) field (or the (n_chains, 2) seeds)
+    from its copy of `generator` (or asks `noise`/`seeds` for it) and keeps
+    its own chains' rows, so the trajectory is run_sapg(n_chains)'s up to
+    the order of the cross-chain sums, whatever the layout.
     route: overrides the kernel route (make_general_sapg_step).
 
     checkpoint_every/checkpoint_path enable mid-run checkpoint + resume:
@@ -822,12 +909,25 @@ def run_sapg(
     called once per remaining step, so the caller positions it at the
     checkpoint (the draws of the iterations the checkpoint has done, and of
     the whole warm-up, are not asked for again).
-    checkpoint_backend: "npz" only ("orbax" raises NotImplementedError).
+    checkpoint_backend: "npz" (one file) or "orbax" (a directory written
+    through torch.distributed.checkpoint, runtime/checkpoint.py).
     nan_guard/max_restores/fault_hook: fail-fast divergence supervision —
     see run_segmented_scan; fault_hook(seg_idx, carry) -> carry gets the
     carry (X, Xhat, prox, θ, σ², params[, extra])."""
     if mesh is not None:
-        raise NotImplementedError("the sharded (mesh) SAPG path is not ported yet")
+        from semiblind_tv_tpu_torch.parallel.mesh import CHAINS_AXIS, axis_size
+        from semiblind_tv_tpu_torch.parallel.sapg_parallel import run_sapg_sharded
+
+        S = axis_size(mesh, CHAINS_AXIS)
+        if n_chains % S != 0:
+            raise ValueError(f"n_chains={n_chains} not divisible by mesh chains axis {S}")
+        return run_sapg_sharded(
+            [problem], mesh, [generator], chains_per_shard=n_chains // S, x0=x0,
+            noise=None if noise is None else [noise], seeds=None if seeds is None else [seeds],
+            route=route, checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path,
+            checkpoint_backend=checkpoint_backend, fault_hook=fault_hook, nan_guard=nan_guard,
+            max_restores=max_restores,
+        )[0]
     cfg = problem.cfg
     sapg = cfg.sapg
     blur = problem.blur

@@ -12,7 +12,8 @@ SAPG estimator, and the results files (runtime/checkpoint.py).
   the replay positioned at the checkpoint;
 * a NaN injected into the carry restores from the checkpoint and ends on
   the clean run; without a checkpoint, and with the restores used up, the
-  run raises SAPGDivergenceError; the Orbax backend raises;
+  run raises SAPGDivergenceError; the directory ("orbax") backend resumes
+  on the uninterrupted run;
 * save_results / load_results / run_stats give the JAX package's keys and
   values on the same results.
 """
@@ -235,15 +236,30 @@ def test_nan_guard_raises_once_the_restores_are_used_up(tmp_path):
 
 
 def test_orbax_backend_raises(tmp_path):
+    """backend="orbax" is the directory backend (torch.distributed.checkpoint):
+    a run checkpointed to a directory resumes on the uninterrupted run, the
+    arrays round-trip, an empty directory has no checkpoint to read, and an
+    unknown backend raises."""
     problem = _problem(_cfg(samples=10, warmup=2))
-    with pytest.raises(NotImplementedError):
+    full = run_sapg(problem, torch.Generator().manual_seed(2))
+    path = str(tmp_path / "orbax")
+    with pytest.raises(Preempted):
         run_sapg(problem, torch.Generator().manual_seed(2), checkpoint_every=4,
-                 checkpoint_path=str(tmp_path / "orbax"), checkpoint_backend="orbax")
-    with pytest.raises(NotImplementedError):
-        tck.save_checkpoint_arrays(str(tmp_path / "o"), {"a": np.zeros(2)}, backend="orbax")
+                 checkpoint_path=path, checkpoint_backend="orbax", fault_hook=_preempt_before(2))
+    assert os.path.isdir(path) and not os.path.exists(path + ".tmp")
+    resumed = run_sapg(problem, torch.Generator().manual_seed(7), checkpoint_every=4,
+                       checkpoint_path=path, checkpoint_backend="orbax")
+    _assert_same_run(resumed, full)
+    arrays = {"X": np.arange(6.0).reshape(2, 3), "n": np.asarray(3), "g": np.arange(4, dtype=np.uint8)}
+    tck.save_checkpoint_arrays(str(tmp_path / "o"), arrays, backend="orbax")
+    back = tck.load_checkpoint_arrays(str(tmp_path / "o"))   # a directory: this backend
+    assert sorted(back) == sorted(arrays)
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(back[k], v)
+        assert back[k].dtype == v.dtype
     os.makedirs(tmp_path / "dir")
-    with pytest.raises(NotImplementedError):
-        tck.load_checkpoint_arrays(str(tmp_path / "dir"))   # a directory is Orbax's layout
+    with pytest.raises(Exception):
+        tck.load_checkpoint_arrays(str(tmp_path / "dir"))
     with pytest.raises(ValueError):
         tck.save_checkpoint_arrays(str(tmp_path / "o"), {}, backend="zarr")
 

@@ -15,10 +15,7 @@ import torch
 
 from tests.test_migration_surface import DOCUMENTED
 
-NOT_YET = {
-    # the parallel code (ROADMAP queue 1 item 5)
-    ("semiblind_tv_tpu.cli.run_sharded", "main"),
-}
+NOT_YET = set()
 
 
 def _port(module: str) -> str:

@@ -56,6 +56,12 @@ run launches no warm-up step; TV-FISTA through A2 agrees with its plain
 route on the card within 1e-5 of the largest magnitude; the posterior
 moments at B=4 are finite, var ≥ 0, and equal the brute-force moments of
 the same run's samples within 1e-5.
+
+Per-chain scalars (the problems of a sharded run in one launch): A1, A2,
+B, C, F and G called with one λ (and γ, λθ, σ²) a chain, as (B,) tensors,
+equal their plain versions fed the same vectors bit for bit at a fixed
+sweep count (tol 0), and each chain equals a call of that chain alone with
+0-d scalars.
 """
 import numpy as np
 import pytest
@@ -695,3 +701,58 @@ def test_posterior_moments_on_the_card(cuda_device):
     scale = np.abs(xs).max()
     assert np.abs(res.posterior_mean - xs.mean(0)).max() <= 1e-5 * scale
     assert np.abs(res.posterior_var - xs.var(0, ddof=1)).max() <= 1e-5 * scale ** 2
+
+
+# ---------------------------------------------------------------------------
+# Per-chain scalars: one value a chain, as the sharded path's batched step
+# gives them
+# ---------------------------------------------------------------------------
+
+def _chain_scalar_call(form, dev, sl=slice(None)):
+    """(kernel outputs, plain outputs) of `form` with (B,) scalars on the
+    chains `sl` of fixed inputs (tol 0: a fixed sweep count)."""
+    rng = np.random.default_rng(11)
+    big = form in ("F", "G")
+    shape = (3, 520, 600) if big else (3, 96, 130)
+    vec = {k: torch.tensor(v, device=dev)[sl] for k, v in (
+        ("lam", [20.0, 3.0, 60.0]), ("gam", [1.9, 1.2, 0.7]), ("lam_step", [2.0, 1.0, 3.0]),
+        ("lt", [0.02, 0.5, 0.1]), ("s2", [1.0, 4.0, 0.5]))}
+    g = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(dev)[sl].contiguous()
+    if form in ("A1", "A2", "F"):
+        duals = (_field(rng, shape, dev)[sl].contiguous(), _field(rng, shape, dev)[sl].contiguous())
+        fn = tv_blocked_cuda.chambolle_prox_blocked if form == "F" else tv_cuda.chambolle_prox_cuda
+        if form == "A2":
+            args = (g, vec["lam"] / 40, 25, 0.249, 0.0, None, False)
+        else:
+            args = (g, vec["lam"], 10, 0.249, 0.0, duals)
+        k = fn(*args)
+        p = tv_cuda.chambolle_prox_plain(*args)
+        return (k[0], k[1].px, k[1].py), (p[0], p[1].px, p[1].py)
+    x, prox, grad = (v[sl].contiguous() for v in _step_fields(rng, shape, dev))
+    scal = (vec["gam"], vec["lam_step"], vec["lt"])
+    kw = dict(n_sweeps=25, tol=0.0)
+    if form == "B":
+        z = _field(rng, shape, dev)[sl].contiguous()
+        k = fused_step_cuda.myula_prox_tv(x, prox, grad, z, *scal, **kw)
+        p = fused_step_cuda.myula_prox_tv_plain(x, prox, grad, z, *scal, **kw)
+    elif form == "C":
+        seeds = _seeds(rng, shape[0], dev)[sl].contiguous()
+        k = fused_step_cuda.myula_prox_tv_rng(x, prox, grad, seeds, *scal, **kw)
+        p = fused_step_cuda.myula_prox_tv_rng_plain(x, prox, grad, seeds, *scal, **kw)
+    else:
+        z = _field(rng, shape, dev)[sl].contiguous()
+        k = fused_step_cuda.myula_prox_tv_blocked(x, prox, grad, z, *scal, vec["s2"], **kw)
+        p = fused_step_cuda.myula_prox_tv_blocked_plain(x, prox, grad, z, *scal, vec["s2"], **kw)
+    return k[:2], p[:2]
+
+
+@pytest.mark.parametrize("form", ["A1", "A2", "B", "C", "F", "G"])
+def test_chain_scalars_kernel_matches_plain(cuda_device, form):
+    k, p = _chain_scalar_call(form, cuda_device)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    for b in range(3):
+        one, _ = _chain_scalar_call(form, cuda_device, slice(b, b + 1))
+        for a, c in zip(k, one):
+            assert torch.equal(a[b], c[0]), (form, b)
+    assert tv_cuda.barrier_error() == 0

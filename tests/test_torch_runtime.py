@@ -215,3 +215,31 @@ def test_plots_without_out_or_matplotlib_fail_before_the_run(tmp_path, monkeypat
     with pytest.raises(RuntimeError, match="matplotlib"):
         _cli(tmp_path / "demo", "--plots")
     assert not (tmp_path / "demo").exists()
+
+
+def test_reference_images_sweep_aggregates(tmp_path):
+    """benchmarks/run_reference_images (the JAX package's parity sweep): one
+    results.json per image from run_demo, and run_stats' aggregate of them
+    equal to the JAX package's run_stats on the same directory."""
+    from PIL import Image
+
+    from semiblind_tv_tpu.runtime.checkpoint import run_stats as j_run_stats
+    from semiblind_tv_tpu_torch.benchmarks import run_reference_images
+
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    rng = np.random.default_rng(0)
+    for name in ("a", "b"):
+        Image.fromarray((rng.random((32, 32)) * 255).astype(np.uint8)).save(imgs / f"{name}.png")
+    out = tmp_path / "sweep"
+    agg, per_image = run_reference_images.main([
+        "--image-dir", str(imgs), "--images", "a,b", "--out", str(out), "--size", "32",
+        "--samples", "6",
+        "--warmup", "3", "--device", "cpu"])
+    assert sorted(per_image) == ["a", "b"] and agg["count"] == 2.0
+    for name, res in per_image.items():
+        with open(out / name / "results.json") as f:
+            assert json.load(f)["mse_db"] == res["mse_db"]
+    assert agg == j_run_stats(str(out))
+    with open(out / "aggregate.json") as f:
+        assert json.load(f) == agg

@@ -178,11 +178,25 @@ def test_unported_options_raise(option):
     assert (res.posterior_mean is not None) == (option == "track_posterior_moments")
 
 
-def test_mesh_argument_raises():
-    problem = build_problem(synthetic_wheel(16), tcfg.gaussian_preset(),
-                            torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_sapg(problem, torch.Generator().manual_seed(1), mesh=object())
+def test_mesh_argument_runs():
+    """run_sapg(mesh=) on a 1x1 mesh (a one-process gloo world, torn down
+    after) runs the sharded path: the single-device trajectory
+    (tests/test_torch_parallel.py holds the larger worlds)."""
+    import torch.distributed as dist
+
+    from semiblind_tv_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = _short(tcfg.gaussian_preset(fix_w1=False, fix_w2=False), samples=8, warmup=3)
+    problem = build_problem(synthetic_wheel(16), cfg, torch.Generator().manual_seed(0),
+                            dtype=torch.float64, device="cpu")
+    try:
+        mesh = make_mesh(1, 1, device_type="cpu")
+        got = run_sapg(problem, torch.Generator().manual_seed(1), n_chains=2, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    ref = run_sapg(problem, torch.Generator().manual_seed(1), n_chains=2)
+    np.testing.assert_array_equal(got.thetas, ref.thetas)
+    np.testing.assert_array_equal(got.X_last, ref.X_last)
 
 
 def test_nan_guard_raises_on_non_finite_traces():
