@@ -85,9 +85,10 @@ _SIGNATURES = {
     ),
     "sb_dft_host_costs": ([_P, _I, _P], _I),
     "sb_prox_variant": (
-        [_I] + [_P] * 10 + [_I] * 4 + [_P],
+        [_I] + [_P] * 6 + [_I] * 6 + [_P],
         _I,
     ),
+    "sb_prox_variant_occupancy": ([_I, _P], _I),
 }
 
 

@@ -35,7 +35,14 @@ reciprocal, which the v5e TPU could not lower in bf16).
 `prox_variant(mode, g, scal, max_iter)` launches `csrc/prox_variants.cu`
 for a CUDA tensor and runs `prox_variant_plain` for a CPU tensor; anything
 else raises.  g is (B, M, N) float32, scal a (3,) float32 tensor of
-(λ, τ, tol) on g's device.  LAUNCHES counts the kernel's launches.
+(λ, τ, tol) on g's device, read by the kernel on the device.  The kernel
+is one cooperative launch a call on the resident design of kernels A–C
+(`csrc/resident.cuh`, geometry and workspace from `ops/tv_cuda.py`): the
+duals in registers, borders and residual partials through the per-chain
+barrier, the mode a policy of the sweep and of what the barrier carries.
+LAUNCHES counts the kernel's launches.  `prox_variant_resident_emulated`
+replays the kernel's schedule on the CPU (chain groups, the walk form,
+per-tile partials in the kernel's order, the exit as each mode takes it).
 
 On the card (needs one CUDA card; there is no CPU fallback):
 
@@ -56,28 +63,84 @@ import os
 import subprocess
 import sys
 import traceback
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from semiblind_tv_tpu_torch.ops.tv import divergence, forward_gradient
-from semiblind_tv_tpu_torch.ops.tv_cuda import check_fields, check_status
+from semiblind_tv_tpu_torch.ops.tv_cuda import (
+    chain_total,
+    check_fields,
+    check_status,
+    resident_geometry,
+    resident_launch,
+    tile_sums,
+)
 
 __all__ = [
-    "MODES", "BF16_MODES", "NO_RESIDUAL", "prox_variant", "prox_variant_plain",
-    "probe_inputs", "probe_mode", "card_line", "main", "LAUNCHES",
+    "MODES", "BF16_MODES", "NO_RESIDUAL", "MASKED", "prox_variant", "prox_variant_plain",
+    "prox_variant_resident_emulated", "variant_occupancy", "probe_inputs", "probe_mode",
+    "card_line", "main", "LAUNCHES",
 ]
 
 MODES = ("base", "recip", "noresid", "nosqrt", "while", "roll", "rollmul", "every5",
          "bf16mix", "bf16", "bf16all")   # the kernel's mode ids are the indices
 BF16_MODES = ("bf16mix", "bf16", "bf16all")
 NO_RESIDUAL = ("noresid", "nosqrt")
-LAUNCHES = 0   # prox_variant launches of csrc/prox_variants.cu
+MASKED = ("base", "recip")   # a stopped chain sweeps on to max_iter, keeping its duals
+LAUNCHES = 0   # prox_variant launches of csrc/prox_variants.cu (one a call)
 
 
 def _check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+
+
+def _variant_sweep(mode: str, px: torch.Tensor, py: torch.Tensor, glam: torch.Tensor,
+                   tau: torch.Tensor, check: bool):
+    """One sweep of `mode` on whole fields in the dual type of px: (new px,
+    new py, the residual field r2, float32 — None unless `check`)."""
+    all_bf = mode in ("bf16", "bf16all")
+    dual = px.dtype
+    upx, upy = forward_gradient(divergence(px, py) - glam)
+    r2 = None
+    if all_bf:
+        tau_s = tau.to(dual)
+        tmp = torch.sqrt(upx * upx + upy * upy)
+        if check and mode == "bf16":
+            rx = -upx.float() + tmp.float() * px.float()
+            ry = -upy.float() + tmp.float() * py.float()
+            r2 = rx * rx + ry * ry
+        elif check:
+            rx = -upx + tmp * px
+            ry = -upy + tmp * py
+            r2 = (rx * rx + ry * ry).float()
+        rden = 1.0 / (1.0 + tau_s * tmp)
+        return (px + tau_s * upx) * rden, (py + tau_s * upy) * rden, r2
+    bf = mode in BF16_MODES
+    p1, p2 = (px.float(), py.float()) if bf else (px, py)
+    if bf:
+        upx, upy = upx.float(), upy.float()
+    s2 = upx * upx + upy * upy
+    tmp = s2 if mode == "nosqrt" else torch.sqrt(s2)
+    if check:
+        rx = -upx + tmp * p1
+        ry = -upy + tmp * p2
+        r2 = rx * rx + ry * ry
+    if mode == "base":
+        denom = 1.0 + tau * tmp
+        npx = (p1 + tau * upx) / denom
+        npy = (p2 + tau * upy) / denom
+    else:
+        rden = 1.0 / (1.0 + tau * tmp)
+        npx = (p1 + tau * upx) * rden
+        npy = (p2 + tau * upy) * rden
+    return npx.to(dual), npy.to(dual), r2
+
+
+def _checks(mode: str, s: int) -> bool:
+    """Whether sweep s (from 0) of `mode` takes the residual and may exit."""
+    return mode not in NO_RESIDUAL and (mode != "every5" or (s + 1) % 5 == 0)
 
 
 def prox_variant_plain(mode: str, g: torch.Tensor, scal: torch.Tensor,
@@ -89,53 +152,17 @@ def prox_variant_plain(mode: str, g: torch.Tensor, scal: torch.Tensor,
     lam, tau, tol = scal[0], scal[1], scal[2]
     B = g.shape[0]
     dev = g.device
-    bf = mode in BF16_MODES
-    all_bf = mode in ("bf16", "bf16all")
     resid = mode not in NO_RESIDUAL
-    dual = torch.bfloat16 if bf else g.dtype
+    dual = torch.bfloat16 if mode in BF16_MODES else g.dtype
     glam = (g / lam).to(dual)
-    tau_s = tau.to(dual) if all_bf else tau
     px = torch.zeros(g.shape, dtype=dual, device=dev)
     py = torch.zeros_like(px)
     k = torch.zeros((B,), dtype=torch.float32, device=dev)
     err = torch.full((B,), float("inf") if resid else 0.0, dtype=torch.float32, device=dev)
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     for s in range(max_iter):
-        check = resid and (mode != "every5" or (s + 1) % 5 == 0)
-        upx, upy = forward_gradient(divergence(px, py) - glam)
-        r2 = None
-        if all_bf:
-            tmp = torch.sqrt(upx * upx + upy * upy)
-            if check and mode == "bf16":
-                rx = -upx.float() + tmp.float() * px.float()
-                ry = -upy.float() + tmp.float() * py.float()
-                r2 = rx * rx + ry * ry
-            elif check:
-                rx = -upx + tmp * px
-                ry = -upy + tmp * py
-                r2 = (rx * rx + ry * ry).float()
-            rden = 1.0 / (1.0 + tau_s * tmp)
-            npx = (px + tau_s * upx) * rden
-            npy = (py + tau_s * upy) * rden
-        else:
-            p1, p2 = (px.float(), py.float()) if bf else (px, py)
-            if bf:
-                upx, upy = upx.float(), upy.float()
-            s2 = upx * upx + upy * upy
-            tmp = s2 if mode == "nosqrt" else torch.sqrt(s2)
-            if check:
-                rx = -upx + tmp * p1
-                ry = -upy + tmp * p2
-                r2 = rx * rx + ry * ry
-            if mode == "base":
-                denom = 1.0 + tau * tmp
-                npx = (p1 + tau * upx) / denom
-                npy = (p2 + tau * upy) / denom
-            else:
-                rden = 1.0 / (1.0 + tau * tmp)
-                npx = (p1 + tau * upx) * rden
-                npy = (p2 + tau * upy) * rden
-            npx, npy = npx.to(dual), npy.to(dual)
+        check = _checks(mode, s)
+        npx, npy, r2 = _variant_sweep(mode, px, py, glam, tau, check)
         if not resid:
             px, py = npx, npy
             continue
@@ -153,11 +180,89 @@ def prox_variant_plain(mode: str, g: torch.Tensor, scal: torch.Tensor,
     return f, torch.stack([k, err], dim=1)
 
 
+def _tile_partials(sums: torch.Tensor, geo) -> torch.Tensor:
+    """The chain's partials as the kernel's blocks write them: in the
+    resident form block k of a chain slot owns tile k mod T, in the walk
+    form block k sweeps tiles k, k + K, ... in turn; each tile's partial
+    goes to its own slot, so the chain's sum has one order in both."""
+    T = sums.shape[0]
+    K = geo.grid if geo.walk > 1 else T
+    part = torch.full_like(sums, float("nan"))
+    owner = [None] * T
+    for k in range(K):
+        for tile in range(k, T, K):
+            if owner[tile] is not None:
+                raise AssertionError(f"tile {tile} swept by blocks {owner[tile]} and {k}")
+            owner[tile] = k
+            part[tile] = sums[tile]
+    if None in owner:
+        raise AssertionError(f"tiles {[t for t, o in enumerate(owner) if o is None]} unswept")
+    return part
+
+
+def prox_variant_resident_emulated(mode: str, g: torch.Tensor, scal: torch.Tensor, max_iter: int,
+                                   capacity: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel J's schedule replayed in PyTorch on the CPU: the chain groups
+    (or the walk form) of resident_geometry(B, M, N, capacity); each chain
+    swept from zero duals with the mode's per-pixel operations
+    (prox_variant_plain's, on whole fields: a tile's border exchange gives
+    each pixel the same neighbours); on a sweep that checks, the residual
+    is the fixed-order sum (tv_cuda.chain_total) of the tiles' partials
+    (tv_cuda.tile_sums, the kernel's thread, warp and tile order); the exit
+    as the kernel takes it — a masked mode (base, recip) sweeps on to
+    max_iter keeping its stopped duals (the barrier then carries borders
+    only), `while` and the others leave, every5
+    tests only on sweeps 5, 10, ..., noresid and nosqrt never; then f =
+    g − λ·div p.  Same results as prox_variant; meta's residual is the
+    kernel's sum."""
+    _check_mode(mode)
+    if g.ndim != 3:
+        raise ValueError(f"g must be (B, M, N), got {tuple(g.shape)}")
+    B, M, N = g.shape
+    geo = resident_geometry(B, M, N, capacity)
+    lam, tau, tol = scal[0], scal[1], scal[2]
+    resid = mode not in NO_RESIDUAL
+    masked = mode in MASKED
+    dual = torch.bfloat16 if mode in BF16_MODES else g.dtype
+    f = torch.empty_like(g)
+    meta = torch.zeros((B, 2), dtype=torch.float32, device=g.device)
+    seen = []
+    for grp in range(geo.groups):
+        for slot in range(geo.chains):
+            b = grp * geo.chains + slot
+            if b >= B:
+                continue
+            seen.append(b)
+            glam = (g[b] / lam).to(dual)
+            px = torch.zeros((M, N), dtype=dual, device=g.device)
+            py = torch.zeros_like(px)
+            n, e = 0, torch.tensor(float("inf") if resid else 0.0)
+            for s in range(max_iter):
+                keep = masked and not bool(e > tol)
+                check = _checks(mode, s) and not keep
+                npx, npy, r2 = _variant_sweep(mode, px, py, glam, tau, check)
+                if not keep:
+                    px, py = npx, npy
+                    n = s + 1
+                if check:
+                    e = torch.sqrt(chain_total(_tile_partials(tile_sums(r2.to(torch.float32)),
+                                                              geo)))
+                if not masked and check and not bool(e > tol):
+                    break
+            f[b] = g[b] - lam * divergence(px.to(g.dtype), py.to(g.dtype))
+            meta[b, 0], meta[b, 1] = float(n), e
+    if sorted(seen) != list(range(B)):
+        raise AssertionError(f"the groups cover chains {seen}, not each of {B} once")
+    return f, meta
+
+
 def prox_variant(mode: str, g: torch.Tensor, scal: torch.Tensor,
                  max_iter: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """One mode of the probe: the kernel for a CUDA tensor, the plain
     version for a CPU tensor.  g (B, M, N) float32, scal (3,) float32
-    (λ, τ, tol) on g's device; returns (f, meta)."""
+    (λ, τ, tol) on g's device; returns (f, meta).  One launch a call; it
+    allocates f and meta, and the resident workspace the first time."""
     global LAUNCHES
     _check_mode(mode)
     if g.device.type == "cpu":
@@ -175,26 +280,34 @@ def prox_variant(mode: str, g: torch.Tensor, scal: torch.Tensor,
                          f"{scal.dtype} {tuple(scal.shape)} on {scal.device}")
     lib = load_library()
     B, M, N = g.shape
-    dev = g.device
-    with torch.cuda.device(dev):
-        dual = torch.bfloat16 if mode in BF16_MODES else torch.float32
-        px_buf = torch.empty((2, B, M, N), dtype=dual, device=dev)
-        py_buf = torch.empty_like(px_buf)
-        iters = torch.empty((B,), dtype=torch.int32, device=dev)
-        err = torch.empty((B,), dtype=torch.float32, device=dev)
-        active = torch.empty((B,), dtype=torch.int32, device=dev)
-        partials = torch.empty((B, lib.sb_num_tiles(M, N)), dtype=torch.float32, device=dev)
+    with torch.cuda.device(g.device):
+        geo, ws_int, ws_f, stream = resident_launch(g)
         f = torch.empty_like(g)
-        meta = torch.empty((B, 2), dtype=torch.float32, device=dev)
+        meta = torch.empty((B, 2), dtype=torch.float32, device=g.device)
         code = lib.sb_prox_variant(
-            MODES.index(mode), g.data_ptr(), scal.data_ptr(), px_buf.data_ptr(),
-            py_buf.data_ptr(), iters.data_ptr(), err.data_ptr(), active.data_ptr(),
-            partials.data_ptr(), f.data_ptr(), meta.data_ptr(), B, M, N, int(max_iter),
-            torch.cuda.current_stream(dev).cuda_stream,
+            MODES.index(mode), g.data_ptr(), scal.data_ptr(), f.data_ptr(), meta.data_ptr(),
+            ws_int.data_ptr(), ws_f.data_ptr(), B, M, N, geo.chains, geo.grid, int(max_iter),
+            stream,
         )
     check_status(code, f"prox_variant({mode})")
     LAUNCHES += 1
     return f, meta
+
+
+def variant_occupancy(mode: str, device) -> dict:
+    """sb_prox_variant_occupancy of `mode` on `device`: blocks an SM (the
+    smaller of its resident and walk forms), registers and local (spill)
+    bytes a thread (the larger)."""
+    import ctypes
+
+    from semiblind_tv_tpu_torch._build import load_library
+
+    _check_mode(mode)
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(torch.device(device)):
+        check_status(load_library().sb_prox_variant_occupancy(MODES.index(mode), out),
+                     "sb_prox_variant_occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes"), list(out)))
 
 
 def probe_inputs(B: int, size: int, device, seed: int = 0):

@@ -185,14 +185,15 @@ def build_sharded_sapg(
 
 def _problem_sources(problems, generators, noise, seeds, built):
     """One draw() of the step's noise for the rank's chains: each local
-    problem's whole field (or seeds) from its own source, its rows kept."""
+    problem's whole field (or seeds) from its own source, its rows kept.
+    Seeds or normals as the step's rule picks them for one problem's
+    chains on the rank (its chains_per_shard)."""
     aux, local, rows, C = built["aux"], built["local"], built["rows"], built["n_chains"]
-    B = len(local) * built["chains_per_shard"]
     shape = (C,) + built["shape"]
     gens = [generators] if isinstance(generators, torch.Generator) else list(generators or [])
     if gens and len(gens) != len(problems):
         raise ValueError(f"{len(gens)} generators for {len(problems)} problems")
-    ikr = aux["in_kernel_rng"](B)
+    ikr = aux["in_kernel_rng"](built["chains_per_shard"])
     user = seeds if ikr else noise
     sources, state_gens = [], []
     for d in local:

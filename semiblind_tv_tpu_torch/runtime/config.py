@@ -6,9 +6,8 @@ same defaults, same presets and the same deliberate reference quirks (the
 Laplace demo's 10x gamma and lambdaMax=0.1, its `max` Lipschitz
 aggregation).  Options of the JAX package that only select TPU code paths
 keep their fields so configurations compare equal; the port's estimator
-raises `NotImplementedError` for the two it does not run
-(`fft_precision='high'`, a TPU bf16 workaround, and
-`track_posterior_moments`).
+raises `NotImplementedError` for the one it does not run
+(`fft_precision='high'`, a TPU bf16 workaround).
 """
 from __future__ import annotations
 
@@ -74,7 +73,7 @@ class SAPGConfig:
     positivity: bool = True         # abs() projection in the MYULA step
     sigma_log_scale: bool = False   # log-space σ² updates (extension)
     psf_log_scale: bool = False     # log-space PSF-parameter updates (extension)
-    track_posterior_moments: bool = False  # not ported (raises when True)
+    track_posterior_moments: bool = False  # Welford posterior mean and M2 after burn-in
 
     @property
     def burn_in_resolved(self) -> int:

@@ -402,15 +402,16 @@ def make_general_sapg_step(
         """(Xn, proxn, tv, Xhatn) from Ĝ = conj(H)·R̂, in the JAX package's
         branch order: kernel D, kernel E (not in the warm-up), then the
         transforms around the spatial segment.  Batched, ghat is (D, C, M,
-        Nh) and the scalars (D,): the kernels get them flat and per chain."""
-        B = X.shape[0]
+        Nh) and the scalars (D,): the kernels get them flat and per chain.
+        The chain-count rules of D and the in-kernel noise see one problem's
+        chains, as the JAX package's vmap over the problems does."""
+        C = X.shape[0] // (problems or 1)
         ghat = flat(ghat)
-        gam, lam, lam_theta, sigma2 = (chains_of(v, B // (problems or 1))
-                                       for v in (gam, lam, lam_theta, sigma2))
-        ikr = in_kernel_rng(B)
+        gam, lam, lam_theta, sigma2 = (chains_of(v, C) for v in (gam, lam, lam_theta, sigma2))
+        ikr = in_kernel_rng(C)
         kw = dict(n_sweeps=sapg.chambolle_iters, tau=sapg.chambolle_tau,
                   tol=sapg.chambolle_tol, positivity=positivity)
-        if fuse_dft(B):
+        if fuse_dft(C):
             return myula_prox_tv_dft(ghat, X, prox, Z, blur.rdft, gam, lam, lam_theta, sigma2,
                                      **kw)
         if irdft_ok and fuse_irdft and not ikr:

@@ -458,3 +458,85 @@ def test_chain_scalar_forms():
     assert strides == 0b1010
     assert per_chain(torch.ones(3), like).shape == (3, 1, 1)
     assert per_chain(torch.ones(()), like).shape == ()
+
+
+# ---------------------------------------------------------------------------
+# The data axis's chain-count rules: one problem's chains, as JAX's vmap
+# ---------------------------------------------------------------------------
+
+def test_data_axis_auto_rules_see_one_problems_chains(monkeypatch):
+    """Two problems of two chains batched in one step (route 'B' forced on
+    CPU tensors: the kernels' plain versions run) in dft mode at 32² with
+    fuse_dft=None and in_kernel_rng=True.  The JAX package vmaps one
+    problem's step over the problems, so its rules see 2 chains: kernel D
+    runs and no seeds are drawn.  The batched step takes D's wrapper on
+    every step, the rank's noise source draws normals, and each problem's
+    trajectory equals its own two-chain run on the same noise (EXACT)."""
+    from semiblind_tv_tpu_torch.parallel import sapg_parallel as sp
+    from semiblind_tv_tpu_torch.sapg import estimator as est
+
+    D, Cl, steps = 2, 2, 6
+    cfg = _cfg(fft_mode="dft", in_kernel_rng=True)
+    problems = [_problem(s, cfg) for s in (11, 12)]
+    calls = {"D": 0, "C": 0, "B": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(est, "myula_prox_tv_dft", spy("D", est.myula_prox_tv_dft))
+    monkeypatch.setattr(est, "myula_prox_tv_rng", spy("C", est.myula_prox_tv_rng))
+    monkeypatch.setattr(est, "myula_prox_tv", spy("B", est.myula_prox_tv))
+    p0 = problems[0]
+    step, aux = est.make_general_sapg_step(p0.model, p0.blur, cfg, p0.sigma_spec().fix,
+                                           route="B", problems=D)
+    assert aux["fuse_dft"](Cl) and not aux["in_kernel_rng"](Cl)
+
+    rng = np.random.default_rng(7)
+    draws = rng.standard_normal((D, steps, Cl, SIZE, SIZE))
+    its = [iter(draws[d]) for d in range(D)]
+
+    def no_seeds(n):
+        raise AssertionError("seeds drawn where JAX draws normals")
+
+    built = dict(aux=aux, local=list(range(D)), rows=slice(0, Cl), n_chains=Cl,
+                 chains_per_shard=Cl, shape=(SIZE, SIZE), n_group=1, device=torch.device("cpu"),
+                 dtype=torch.float64)
+    draw, _ = sp._problem_sources(
+        problems, None, [lambda shape, d=d: torch.from_numpy(next(its[d])) for d in range(D)],
+        [no_seeds] * D, built)
+
+    def start(ys, lam, theta0, sigma0, params0, prox_b, rfft):
+        X = ys.contiguous()
+        return (X, rfft(X), prox_b(X, lam)[0], theta0, sigma0, params0)
+
+    consts = sp.stack_problem_consts(problems)
+    X0 = torch.stack([p.y for p in problems]).repeat_interleave(Cl, dim=0)
+    carry = start(X0, (consts["lam"] * aux["theta0"]).repeat_interleave(Cl), aux["theta0"].expand(D),
+                  consts["sigma2_init"].clone(),
+                  {k: v.expand(D) for k, v in aux["params0"].items()}, aux["prox_b"], p0.blur.rfft)
+    batched = []
+    for ii in range(2, steps + 2):
+        carry, tr = step(carry, ii, consts, draw())
+        batched.append((carry[0], carry[3], carry[4], tr))
+    assert calls == {"D": steps, "C": 0, "B": 0}
+
+    for d, p in enumerate(problems):
+        calls.update(D=0, C=0, B=0)
+        s_step, s_aux = est.make_sapg_step(p, Cl, route="B")
+        assert s_aux["fuse_dft"](Cl) and not s_aux["in_kernel_rng"](Cl)
+        c = start(p.y.expand(Cl, SIZE, SIZE), s_aux["lam"] * s_aux["theta0"], s_aux["theta0"],
+                  p.sigma2_init, dict(s_aux["params0"]), s_aux["prox_b"], p.blur.rfft)
+        for t, ii in enumerate(range(2, steps + 2)):
+            c, tr = s_step(c, ii, torch.from_numpy(draws[d, t]))
+            X, theta, sigma2, btr = batched[t]
+            np.testing.assert_allclose(X[d * Cl:(d + 1) * Cl].numpy(), c[0].numpy(), rtol=EXACT,
+                                       atol=EXACT)
+            np.testing.assert_allclose(float(theta[d]), float(c[3]), rtol=EXACT)
+            np.testing.assert_allclose(float(sigma2[d]), float(c[4]), rtol=EXACT)
+            for k, v in tr.items():
+                np.testing.assert_allclose(float(btr[k][d]), float(v), rtol=EXACT, atol=EXACT,
+                                           err_msg=k)
+        assert calls == {"D": steps, "C": 0, "B": 0}

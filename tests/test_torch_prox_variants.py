@@ -10,6 +10,15 @@ and rollmul are held against JAX's `while` (and against the port's own
 `while`, exactly).  On the CPU `prox_variant` runs its plain version; the
 kernel is held against that on the card (tests/test_torch_on_card.py).
 
+The kernel's schedule: `prox_variant_resident_emulated` (the resident
+kernel's chain groups and walk form, per-tile partials in its summation
+order, each mode's exit) equals `prox_variant_plain` to the bit in f with
+equal sweep counts, in all eleven modes, at an even 64×64 (B=2) and a
+ragged 40×72 (B=3) shape, in the resident form, in chain groups and in
+the walk form (small `capacity`); every5 exits only on multiples of 5;
+noresid's and nosqrt's meta is (max_iter, 0).  The last residual is the
+kernel's fixed-order sum against torch.sum's: within 1e-5 relative.
+
 Inputs: J's uniform [0, 255) field at two shapes, B=2 at 16×24 and B=3 at
 33×40 (ragged against the 32×8 tile, chain 0 scaled by 0.25 so that it
 stops earlier).  Bounds:
@@ -220,3 +229,77 @@ def test_probe_inputs_and_main_need_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             P.main()
+
+
+# ---------------------------------------------------------------------------
+# The kernel's schedule replayed on the CPU
+# ---------------------------------------------------------------------------
+
+EMU_SHAPES = [(2, 64, 64), (3, 40, 72)]
+# capacity → the form: None the resident form (every chain at once); the
+# tiles of one chain: chain groups of one; fewer: the walk form
+EMU_FORMS = {"resident": lambda T: None, "groups": lambda T: T, "walk": lambda T: T - 1}
+
+
+def _emu_field(shape):
+    g = _field(shape, seed=4)
+    g[0] *= 0.25   # stops earlier at the decisive tol
+    return torch.from_numpy(g)
+
+
+@pytest.mark.parametrize("form", list(EMU_FORMS))
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+@pytest.mark.parametrize("mode", P.MODES)
+def test_resident_emulation_matches_plain(mode, shape, form):
+    from semiblind_tv_tpu_torch.ops.tv_cuda import resident_geometry
+
+    B, M, N = shape
+    T = resident_geometry(1, M, N).tiles
+    cap = EMU_FORMS[form](T)
+    geo = resident_geometry(B, M, N, cap)
+    assert (geo.walk > 1) == (form == "walk") and (geo.chains == 1) == (form != "resident")
+    g = _emu_field(shape)
+    decisive = TOL_DECISIVE * (M * N / (33 * 40)) ** 0.5
+    for lam, tol in ((LAM_PROBE, 0.0), (LAM_DECISIVE, decisive)):
+        scal = torch.from_numpy(_scal_np(lam, tol))
+        f, meta = P.prox_variant_plain(mode, g, scal, SWEEPS)
+        ef, emeta = P.prox_variant_resident_emulated(mode, g, scal, SWEEPS, capacity=cap)
+        assert torch.equal(ef, f), (mode, tol, float((ef - f).abs().max()))
+        assert torch.equal(emeta[:, 0], meta[:, 0]), (emeta, meta)
+        if mode in P.NO_RESIDUAL:
+            assert emeta.tolist() == [[SWEEPS, 0.0]] * B
+        else:
+            np.testing.assert_allclose(emeta[:, 1].numpy(), meta[:, 1].numpy(), rtol=1e-5)
+        k = emeta[:, 0].numpy()
+        if tol == 0.0:
+            np.testing.assert_array_equal(k, SWEEPS)
+        elif mode not in P.NO_RESIDUAL:
+            assert (k < SWEEPS).all() and (emeta[:, 1] <= tol).all(), emeta
+            if mode == "every5":
+                assert (k % 5 == 0).all(), k
+            else:
+                assert k[0] < k[1], k
+
+
+def test_every5_exits_only_on_multiples_of_five():
+    """every5 stops on the first multiple of 5 at or after the sweep where
+    `while` stops, in the emulation as in the plain version; a run cut off
+    before sweep 5 keeps an infinite residual."""
+    g = _emu_field((3, 40, 72))
+    scal = torch.from_numpy(_scal_np(LAM_DECISIVE, TOL_DECISIVE * (40 * 72 / 1320) ** 0.5))
+    k_while = P.prox_variant_resident_emulated("while", g, scal, SWEEPS)[1][:, 0].numpy()
+    k5 = P.prox_variant_resident_emulated("every5", g, scal, SWEEPS)[1][:, 0].numpy()
+    assert not (k_while % 5 == 0).all()
+    np.testing.assert_array_equal(k5, [5 * math.ceil(t / 5) for t in k_while])
+    meta4 = P.prox_variant_resident_emulated("every5", g, scal, 4)[1]
+    assert meta4[:, 0].tolist() == [4.0] * 3 and torch.isinf(meta4[:, 1]).all()
+
+
+@pytest.mark.parametrize("mode", P.NO_RESIDUAL)
+def test_no_residual_meta_is_max_iter_and_zero(mode):
+    g = _emu_field((2, 64, 64))
+    scal = torch.from_numpy(_scal_np(LAM_DECISIVE, 1e9))   # a tol every chain is below
+    for max_iter in (0, 7):
+        for fn in (P.prox_variant_plain, P.prox_variant_resident_emulated):
+            meta = fn(mode, g, scal, max_iter)[1]
+            assert meta.tolist() == [[float(max_iter), 0.0]] * 2, (fn, meta)

@@ -102,6 +102,14 @@ def _world(rank, case_dir):
     guarded = run(6, checkpoint_every=7, checkpoint_path=os.path.join(case_dir, "guard"),
                   checkpoint_backend="orbax", fault_hook=fault)
     out["nan_guard"] = (guarded.thetas, full.thetas, list(hits))
+
+    # x0 ≠ y: the data term fits the observation y, as run_sapg's does
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
+
+    x0 = torch.flipud(short.y) * 0.5
+    sp_x0 = run(8, x0=x0)
+    ref_x0 = run_sapg(short, torch.Generator().manual_seed(8), n_chains=1, x0=x0, route="plain")
+    out["x0"] = [(a.thetas, a.sigma2s, a.logPiTrace, a.X_last) for a in (sp_x0, ref_x0, full)]
     return out
 
 
@@ -248,6 +256,35 @@ def test_spatial_sapg_nan_guard_recovers(worlds):
     guarded, full, hits = worlds[1]["nan_guard"]
     assert hits == [2]
     np.testing.assert_allclose(guarded, full, rtol=1e-12)
+
+
+def test_spatial_sapg_fits_y_from_any_x0(worlds):
+    """With x0 ≠ y the row-split estimator's ŷ is the observation's, as in
+    run_sapg: its run from x0 = flipud(y)/2 equals run_sapg(x0=…) on the
+    same noise, and differs from the run from y.  (The JAX package's
+    run_sapg_spatial takes ŷ from x0, a fault of the reference.)"""
+    (sp, ref, from_y) = worlds[1]["x0"]
+    for a, b in zip(sp[:3], ref[:3]):
+        np.testing.assert_allclose(a, b, rtol=1e-9)
+    np.testing.assert_allclose(sp[3], ref[3], atol=1e-9)
+    assert np.abs(sp[3] - from_y[3]).max() > 1.0
+
+
+@pytest.mark.parametrize("option", ["theta_log_scale", "sigma_log_scale", "psf_log_scale"])
+def test_spatial_sapg_refuses_log_scale_options(option):
+    """The row-split estimator runs the linear SA updates only: each
+    log-scale option raises before any group is touched (the JAX
+    package's spatial estimator has none and ignores them)."""
+    from semiblind_tv_tpu_torch.parallel import spatial
+    from semiblind_tv_tpu_torch.runtime.problem import build_problem
+    from semiblind_tv_tpu_torch.utils.images import synthetic_wheel
+
+    cfg = _cfg(4, 2, 3)
+    cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **{option: True}))
+    problem = build_problem(synthetic_wheel(16), cfg, torch.Generator().manual_seed(0),
+                            dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="linear SA updates"):
+        spatial.run_sapg_spatial(problem, None, torch.Generator().manual_seed(1))
 
 
 def test_space_mesh_cli_flag(tmp_path):
