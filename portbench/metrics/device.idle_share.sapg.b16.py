@@ -1,0 +1,11 @@
+"""The device's idle share over the profiled slice of SAPG iterations
+at B = 16: 1 − (the union of its operations' intervals ÷ the slice's length)."""
+from portbench import readings
+
+UNIT = "%"
+LAYER = "device"
+MOVES = "chain_iter_per_s.b16"
+
+
+def read(r):
+    return readings.idle_share(r)
