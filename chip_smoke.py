@@ -988,6 +988,7 @@ def check_demo(results, sapg, salsa, problem, cfg, shape, tag):
 
 def phase5_demos(torch, tv_cuda, fused_step_cuda, tb, run_demo, presets, tag):
     """run_demo at 2048² (three families) and 1024²; launches per row."""
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
     from semiblind_tv_tpu_torch.utils.images import load_image
 
     gaussian_preset, laplace_preset, moffat_preset = presets
@@ -1003,15 +1004,15 @@ def phase5_demos(torch, tv_cuda, fused_step_cuda, tb, run_demo, presets, tag):
         cfg = dataclasses.replace(cfg, image="synthetic",
                                   sapg=dataclasses.replace(cfg.sapg, **DEMO_BUDGET, **extra))
         image = load_image("synthetic", size=size)
-        tv_cuda.LAUNCHES = tv_cuda.FRESH_LAUNCHES = 0
-        fused_step_cuda.LAUNCHES = fused_step_cuda.BLOCKED_LAUNCHES = 0
-        tb.LAUNCHES = tb.FRESH_LAUNCHES = 0
+        counters.reset("launches.A", "launches.A.fresh", "launches.B", "launches.blocked_step",
+                       "launches.blocked_prox", "launches.blocked_prox.fresh")
         t0 = time.perf_counter()
         results, sapg, salsa, problem = run_demo(cfg, image, n_chains=1, device="cuda")
         wall = time.perf_counter() - t0
-        counts = {"blocked prox": tb.LAUNCHES, "blocked fresh": tb.FRESH_LAUNCHES,
-                  "blocked step": fused_step_cuda.BLOCKED_LAUNCHES, "A": tv_cuda.LAUNCHES,
-                  "B": fused_step_cuda.LAUNCHES}
+        counts = {"blocked prox": counters["launches.blocked_prox"],
+                  "blocked fresh": counters["launches.blocked_prox.fresh"],
+                  "blocked step": counters["launches.blocked_step"], "A": counters["launches.A"],
+                  "B": counters["launches.B"]}
         print(f"phase5 demo {size}x{size} {name}: " + json.dumps(results), flush=True)
         print(f"phase5 demo {size}x{size} {name}: launches {json.dumps(counts)}; sigma2_EB "
               f"{results['sigma2_EB']:.4f} vs truth {results['sigma2_true']:.4f}; mse_db "
@@ -1092,11 +1093,21 @@ def phase5_rates(torch, dev, build_problem, gaussian_preset, salsa_tv, tag):
           f"{dt:.3f} s [{tag}]", flush=True)
 
 
+# the launch counters (profiling.counters, `launches.<name>`) of each ops module
+LAUNCH_COUNTERS = {
+    "tv_cuda": ("A", "A.fresh"),
+    "tv_blocked_cuda": ("blocked_prox", "blocked_prox.fresh"),
+    "fused_step_cuda": ("B", "C", "blocked_step", "blocked_step.seeds"),
+    "fused_dft_cuda": ("D", "E", "dft_products"),
+}
+
+
 def reset_counters(*modules):
+    """Zero the launch counters of the wrappers in `modules`."""
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
+
     for m in modules:
-        for name in dir(m):
-            if name.endswith("LAUNCHES"):
-                setattr(m, name, 0)
+        counters.reset(*("launches." + k for k in LAUNCH_COUNTERS[m.__name__.rsplit(".", 1)[1]]))
 
 
 def phase6_noise_kernels(torch, dev, fs, big, tag):
@@ -1321,6 +1332,7 @@ def phase6_dft_kernels(torch, dev, fs, fd, tv_cuda, big, tag):
 
 def phase6_demos(torch, fs, fd, tv_cuda, tb, run_demo, gaussian_preset, wheel_np, tag):
     """run_demo through kernels D, E, C and I's seeds form; launches per row."""
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
     from semiblind_tv_tpu_torch.utils.images import load_image
 
     free = gaussian_preset(fix_w1=False, fix_w2=False)
@@ -1344,9 +1356,10 @@ def phase6_demos(torch, fs, fd, tv_cuda, tb, run_demo, gaussian_preset, wheel_np
         t0 = time.perf_counter()
         results, sapg, salsa, problem = run_demo(cfg, image, n_chains=n_chains, device="cuda")
         wall = time.perf_counter() - t0
-        counts = {"D": fd.DFT_LAUNCHES, "E": fd.IRDFT_LAUNCHES, "C": fs.RNG_LAUNCHES,
-                  "B": fs.LAUNCHES, "blocked step": fs.BLOCKED_LAUNCHES,
-                  "I[seeds]": fs.BLOCKED_SEEDS_LAUNCHES}
+        counts = {"D": counters["launches.D"], "E": counters["launches.E"],
+                  "C": counters["launches.C"], "B": counters["launches.B"],
+                  "blocked step": counters["launches.blocked_step"],
+                  "I[seeds]": counters["launches.blocked_step.seeds"]}
         print(f"phase6 demo {name}: " + json.dumps(results), flush=True)
         print(f"phase6 demo {name}: launches {json.dumps(counts)}; theta_EB "
               f"{results['theta_EB']:.6f}, sigma2_EB {results['sigma2_EB']:.4f} vs truth "
@@ -1370,6 +1383,8 @@ def phase6_demos(torch, fs, fd, tv_cuda, tb, run_demo, gaussian_preset, wheel_np
 def phase6_card_vs_plain(torch, dev, fd, run_demo, gaussian_preset, wheel_np, tag):
     """The 512² kernel-D pipeline through the kernels and through the plain
     versions on the card, with the same injected noise."""
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
+
     cfg = gaussian_preset(fix_w1=False, fix_w2=False)
     cfg = dataclasses.replace(
         cfg, sapg=dataclasses.replace(cfg.sapg, samples=60, warmup=30, burn_in=48,
@@ -1384,9 +1399,10 @@ def phase6_card_vs_plain(torch, dev, fd, run_demo, gaussian_preset, wheel_np, ta
         it = iter(draws)
         return lambda shape: next(it)
 
-    fd.DFT_LAUNCHES = 0
+    counters.reset("launches.D")
     r_k, *_ = run_demo(cfg, wheel_np, device="cuda", obs_noise=obs, noise=injected())
-    check(fd.DFT_LAUNCHES == 29 + 59, f"the D pipeline launched D {fd.DFT_LAUNCHES} times")
+    check(counters["launches.D"] == 29 + 59,
+          f"the D pipeline launched D {counters['launches.D']} times")
     r_p, *_ = run_demo(cfg, wheel_np, device="cuda", obs_noise=obs, noise=injected(), plain=True)
     agree = {k: abs(r_k[k] - r_p[k]) / abs(r_p[k]) for k in ("theta_EB", "sigma2_EB", "mse_db")}
     print(f"phase6 512x512 kernel D vs plain on the card, 60 SAPG + 60 SALSA: relative "
@@ -1495,7 +1511,9 @@ def phase7_probe(torch, dev, pv, tv_cuda, tag):
     the bit; then noresid's and while's device µs at 1 and 25 sweeps, tol 0
     (the slope: a group-sweep's cost without and with the residual and
     exit).  Returns the launches of kernel J."""
-    pv.LAUNCHES = 0
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
+
+    counters.reset("launches.J")
     anatomy = {}
     for B in (16, 1):
         g, scal = pv.probe_inputs(B, 512, dev)
@@ -1534,7 +1552,7 @@ def phase7_probe(torch, dev, pv, tv_cuda, tag):
                                  for m, v in row.items()},
                           slopes=slopes)
         print(f"phase7 anatomy B={B} 512x512 {json.dumps(anatomy[B])} [{tag}]", flush=True)
-    return {"J": pv.LAUNCHES}
+    return {"J": counters["launches.J"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1607,6 +1625,7 @@ def phase8_resume(torch, dev, m, wheel_np, tag):
     """8a and 8b at 512² (phase 5's budget): resume after a preemption, and
     the NaN guard with and without a checkpoint."""
     from semiblind_tv_tpu_torch.runtime.checkpoint import delete_checkpoint
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
     from semiblind_tv_tpu_torch.sapg.estimator import SAPGDivergenceError
 
     fs, tv_cuda = m["fs"], m["tv_cuda"]
@@ -1627,8 +1646,8 @@ def phase8_resume(torch, dev, m, wheel_np, tag):
     r_res, s_res, salsa, prob = m["run_demo"](cfg, wheel_np, device=dev,
                                               checkpoint_every=CKPT_EVERY, checkpoint_path=ckpt)
     t_res = time.perf_counter() - t0
-    counts = {"B": fs.LAUNCHES, "A2": tv_cuda.FRESH_LAUNCHES,
-              "A1": tv_cuda.LAUNCHES - tv_cuda.FRESH_LAUNCHES}
+    counts = {"B": counters["launches.B"], "A2": counters["launches.A.fresh"],
+              "A1": counters["launches.A"] - counters["launches.A.fresh"]}
     d = runs_rel(s_res, s_full)
     print(f"phase8a resume 512x512 w free {DEMO_BUDGET['samples']}/{DEMO_BUDGET['warmup']}, "
           f"checkpoint every {CKPT_EVERY}, preempted before segment 2 ({done} iterations done): "
@@ -1675,6 +1694,7 @@ def phase8_resume(torch, dev, m, wheel_np, tag):
 def phase8_dft_resume(torch, dev, m, wheel_np, tag):
     """8c: resume through kernel D at 256² B=1 (fft_mode='dft', 300/200)."""
     from semiblind_tv_tpu_torch.runtime.checkpoint import delete_checkpoint
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
 
     fd = m["fd"]
     cfg = m["gaussian_preset"](fix_w1=False, fix_w2=False)
@@ -1688,13 +1708,13 @@ def phase8_dft_resume(torch, dev, m, wheel_np, tag):
     problem, gen = demo_problem(torch, m["build_problem"], cfg, img, dev)
     reset_counters(fd, m["fs"])
     full = m["run_sapg"](problem, gen)
-    d_full = fd.DFT_LAUNCHES
+    d_full = counters["launches.D"]
     problem, gen = demo_problem(torch, m["build_problem"], cfg, img, dev)
     done = interrupted(m["run_sapg"], problem, gen, ckpt, every, 2)
     problem, gen = demo_problem(torch, m["build_problem"], cfg, img, dev)
     reset_counters(fd, m["fs"])
     resumed = m["run_sapg"](problem, gen, checkpoint_every=every, checkpoint_path=ckpt)
-    counts = {"D": fd.DFT_LAUNCHES, "B": m["fs"].LAUNCHES}
+    counts = {"D": counters["launches.D"], "B": counters["launches.B"]}
     d = runs_rel(resumed, full)
     print(f"phase8c resume through kernel D, 256x256 B=1 dft 300/200, checkpoint every {every}:"
           f" uninterrupted D launches {d_full}; resumed launches {json.dumps(counts)} "
@@ -1708,6 +1728,7 @@ def phase8_dft_resume(torch, dev, m, wheel_np, tag):
 def phase8_moments(torch, dev, m, wheel_np, tag):
     """8d: posterior moments at 512² B=16, 200 steps after burn-in; the
     step rate with and without them, interleaved in this call."""
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
     import numpy as np
 
     fs = m["fs"]
@@ -1720,7 +1741,7 @@ def phase8_moments(torch, dev, m, wheel_np, tag):
     res = m["run_sapg"](problem, gen, n_chains=16)
     dt = time.perf_counter() - t0
     mean, var = res.posterior_mean, res.posterior_var
-    check(fs.LAUNCHES == 19 + 249, "the moments run did not take kernel B every step")
+    check(counters["launches.B"] == 19 + 249, "the moments run did not take kernel B every step")
     check(mean is not None and mean.shape == (16,) + wheel_np.shape, "posterior_mean missing")
     check(np.all(np.isfinite(mean)) and np.all(np.isfinite(var)), "non-finite moments")
     check(bool(np.all(var >= 0)), "a negative posterior variance")
@@ -1754,6 +1775,8 @@ def phase8_moments(torch, dev, m, wheel_np, tag):
 def phase8_isotropic(torch, dev, m, wheel_np, tag):
     """8e: the isotropic family's demo at 512² (kernel B with positivity off,
     σ² pinned, θ in log scale)."""
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
+
     fs = m["fs"]
     cfg = m["isotropic_preset"]()
     cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **DEMO_BUDGET))
@@ -1762,9 +1785,9 @@ def phase8_isotropic(torch, dev, m, wheel_np, tag):
     print(f"phase8e isotropic 512x512 {DEMO_BUDGET['samples']}/{DEMO_BUDGET['warmup']}: "
           f"theta_EB {results['theta_EB']:.6f}, w_EB {results['psf_params_EB']['w']:.4f} (true "
           f"{results['true_psf_params']['w']}), mse_db {results['mse_db']:.3f} vs y "
-          f"{results['mse_db_observation']:.3f}; B launches {fs.LAUNCHES}; SAPG "
+          f"{results['mse_db_observation']:.3f}; B launches {counters['launches.B']}; SAPG "
           f"{results['sapg_time_s']:.3f} s [{tag}]", flush=True)
-    check(fs.LAUNCHES > 0, "the isotropic demo did not run kernel B")
+    check(counters["launches.B"] > 0, "the isotropic demo did not run kernel B")
     check_demo(results, sapg, salsa, problem, cfg, wheel_np.shape, "8e isotropic demo")
 
 
@@ -1772,6 +1795,7 @@ def phase8_fista(torch, dev, m, wheel_np, tag):
     """8f: TV-FISTA at 512² through A2 (100 iterations, tol 0), and a 64²
     solve on the card against the same solve on the CPU.  Returns A2's
     launches in the 512² solve."""
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
     import numpy as np
 
     from semiblind_tv_tpu_torch.ops.fourier import BlurOperator
@@ -1789,7 +1813,7 @@ def phase8_fista(torch, dev, m, wheel_np, tag):
     res = fista_tv(prob.y, prob.H_true, max_iter=100, **kw)
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    a2 = tv_cuda.FRESH_LAUNCHES
+    a2 = counters["launches.A.fresh"]
     check(res.n_iters == 100 and np.all(np.isfinite(res.x)), "FISTA 512² run failed")
     check(a2 == 100, f"FISTA launched A2 {a2} times in 100 iterations")
 
@@ -1910,6 +1934,8 @@ def zoo_path(torch, mods, fn):
     fused_step_cuda, tv_blocked_cuda) set to 0 just before it: (fn(), host
     seconds ending in a device sync, its launches of A1, A2, B and the
     blocked prox)."""
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
+
     tv_cuda, fs, tb = mods
     reset_counters(tv_cuda, fs, tb)
     torch.cuda.synchronize()
@@ -1917,8 +1943,9 @@ def zoo_path(torch, mods, fn):
     out = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return out, dt, {"A1": tv_cuda.LAUNCHES - tv_cuda.FRESH_LAUNCHES, "A2": tv_cuda.FRESH_LAUNCHES,
-                     "B": fs.LAUNCHES, "F": tb.LAUNCHES}
+    return out, dt, {"A1": counters["launches.A"] - counters["launches.A.fresh"],
+                     "A2": counters["launches.A.fresh"], "B": counters["launches.B"],
+                     "F": counters["launches.blocked_prox"]}
 
 
 def phase9_kernel_vs_plain(torch, m, wheel_np, dev, tag):
@@ -2231,6 +2258,7 @@ def phase10_dft_axis(torch, dev, m, mesh, wheel_np, tag):
     drawn (kernel C never launches), as in each problem's own run; each
     problem against its own run on the same noise."""
     from semiblind_tv_tpu_torch.parallel.sapg_parallel import run_sapg_sharded
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
 
     fd, fs = m["fd"], m["fs"]
     cfg = p10_cfg(m, samples=30, warmup=10, burn_in=24, fft_mode="dft", in_kernel_rng=True)
@@ -2242,11 +2270,11 @@ def phase10_dft_axis(torch, dev, m, mesh, wheel_np, tag):
         problems.append(m["build_problem"](img, cfg, g, device=dev))
         gens.append(g)
     states = [g.get_state() for g in gens]
-    fd.DFT_LAUNCHES = fs.RNG_LAUNCHES = 0
+    counters.reset("launches.D", "launches.C")
     t0 = time.perf_counter()
     sharded = run_sapg_sharded(problems, mesh, gens, chains_per_shard=1)
     dt = time.perf_counter() - t0
-    n_d, n_c = fd.DFT_LAUNCHES, fs.RNG_LAUNCHES
+    n_d, n_c = counters["launches.D"], counters["launches.C"]
     singles = []
     for g, st, p_ in zip(gens, states, problems):
         g.set_state(st)
@@ -2446,6 +2474,7 @@ def main() -> int:
         moffat_preset,
     )
     from semiblind_tv_tpu_torch.runtime.problem import build_problem
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
     from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
     from semiblind_tv_tpu_torch.solvers.salsa import salsa_tv
     from semiblind_tv_tpu_torch.utils.images import load_image
@@ -2501,15 +2530,14 @@ def main() -> int:
     cfg = dataclasses.replace(
         cfg, sapg=dataclasses.replace(cfg.sapg, samples=2000, warmup=1500, burn_in=1600)
     )
-    tv_cuda.LAUNCHES = tv_cuda.FRESH_LAUNCHES = 0
-    fused_step_cuda.LAUNCHES = fused_step_cuda.BLOCKED_LAUNCHES = 0
-    tb.LAUNCHES = tb.FRESH_LAUNCHES = 0
+    counters.reset("launches.A", "launches.A.fresh", "launches.B", "launches.blocked_step",
+                   "launches.blocked_prox", "launches.blocked_prox.fresh")
     results, sapg, salsa, problem = run_demo(cfg, wheel_np, n_chains=1, device="cuda")
-    launches = {"A1": tv_cuda.LAUNCHES - tv_cuda.FRESH_LAUNCHES,
-                "A2": tv_cuda.FRESH_LAUNCHES, "B": fused_step_cuda.LAUNCHES}
+    launches = {"A1": counters["launches.A"] - counters["launches.A.fresh"],
+                "A2": counters["launches.A.fresh"], "B": counters["launches.B"]}
     print("phase3 results " + json.dumps(results), flush=True)
     print(f"phase3 launches {json.dumps(launches)}; blocked "
-          f"{tb.LAUNCHES + fused_step_cuda.BLOCKED_LAUNCHES}", flush=True)
+          f"{counters['launches.blocked_prox'] + counters['launches.blocked_step']}", flush=True)
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
     check_demo(results, sapg, salsa, problem, cfg, (512, 512), "512² demo")

@@ -40,9 +40,10 @@ is one cooperative launch a call on the resident design of kernels A–C
 (`csrc/resident.cuh`, geometry and workspace from `ops/tv_cuda.py`): the
 duals in registers, borders and residual partials through the per-chain
 barrier, the mode a policy of the sweep and of what the barrier carries.
-LAUNCHES counts the kernel's launches.  `prox_variant_resident_emulated`
-replays the kernel's schedule on the CPU (chain groups, the walk form,
-per-tile partials in the kernel's order, the exit as each mode takes it).
+`launches.J` (profiling.counters) counts the kernel's launches.
+`prox_variant_resident_emulated` replays the kernel's schedule on the CPU
+(chain groups, the walk form, per-tile partials in the kernel's order, the
+exit as each mode takes it).
 
 On the card (needs one CUDA card; there is no CPU fallback):
 
@@ -76,11 +77,12 @@ from semiblind_tv_tpu_torch.ops.tv_cuda import (
     resident_launch,
     tile_sums,
 )
+from semiblind_tv_tpu_torch.runtime import profiling
 
 __all__ = [
     "MODES", "BF16_MODES", "NO_RESIDUAL", "MASKED", "prox_variant", "prox_variant_plain",
     "prox_variant_resident_emulated", "variant_occupancy", "probe_inputs", "probe_mode",
-    "card_line", "main", "LAUNCHES",
+    "card_line", "main",
 ]
 
 MODES = ("base", "recip", "noresid", "nosqrt", "while", "roll", "rollmul", "every5",
@@ -88,7 +90,6 @@ MODES = ("base", "recip", "noresid", "nosqrt", "while", "roll", "rollmul", "ever
 BF16_MODES = ("bf16mix", "bf16", "bf16all")
 NO_RESIDUAL = ("noresid", "nosqrt")
 MASKED = ("base", "recip")   # a stopped chain sweeps on to max_iter, keeping its duals
-LAUNCHES = 0   # prox_variant launches of csrc/prox_variants.cu (one a call)
 
 
 def _check_mode(mode: str) -> None:
@@ -263,7 +264,6 @@ def prox_variant(mode: str, g: torch.Tensor, scal: torch.Tensor,
     version for a CPU tensor.  g (B, M, N) float32, scal (3,) float32
     (λ, τ, tol) on g's device; returns (f, meta).  One launch a call; it
     allocates f and meta, and the resident workspace the first time."""
-    global LAUNCHES
     _check_mode(mode)
     if g.device.type == "cpu":
         return prox_variant_plain(mode, g, scal, max_iter)
@@ -290,7 +290,7 @@ def prox_variant(mode: str, g: torch.Tensor, scal: torch.Tensor,
             stream,
         )
     check_status(code, f"prox_variant({mode})")
-    LAUNCHES += 1
+    profiling.counters.add("launches.J")
     return f, meta
 
 

@@ -25,7 +25,9 @@ seeds form at ≥2048²).
 `--solver fista` solves the MAP problem by TV-FISTA (solvers/fista.py)
 instead of SALSA.  `--out DIR` writes results.json and traces.npz
 (runtime/checkpoint.save_results); `--plots` adds the reference's figure set
-there and needs matplotlib.  A long run resumes from a checkpoint through
+there and needs matplotlib; `--spans` (with `--out`) records the run's
+spans and counters (runtime/profiling.py) and writes them to spans.json, a
+Chrome trace that Perfetto opens.  A long run resumes from a checkpoint through
 `run_demo(cfg, image, checkpoint_every=N, checkpoint_path=PATH)`.
 
 `--mesh DxC` runs the SAPG phase on a ('data', 'chains') mesh
@@ -57,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from semiblind_tv_tpu_torch.metrics import metrics
+from semiblind_tv_tpu_torch.runtime import profiling
 from semiblind_tv_tpu_torch.runtime.checkpoint import save_results
 from semiblind_tv_tpu_torch.runtime.config import preset
 from semiblind_tv_tpu_torch.runtime.problem import build_problem, resolve_device
@@ -65,7 +68,9 @@ from semiblind_tv_tpu_torch.solvers.fista import fista_tv
 from semiblind_tv_tpu_torch.solvers.salsa import salsa_tv
 from semiblind_tv_tpu_torch.utils.images import load_image
 
-__all__ = ["run_demo", "save_plots", "main", "resolve_device"]
+__all__ = ["run_demo", "save_plots", "main", "resolve_device", "SPANS_FILE"]
+
+SPANS_FILE = "spans.json"   # what --spans writes under --out
 
 
 def run_demo(
@@ -272,6 +277,9 @@ def main(argv=None):
     p.add_argument("--f64", action="store_true",
                    help="float64, with --device cpu (the CUDA kernels are float32)")
     p.add_argument("--out", default=None, help="directory for results.json and traces.npz")
+    p.add_argument("--spans", action="store_true",
+                   help="record the run's spans and counters and write them to "
+                        f"{SPANS_FILE} under --out (a Chrome trace)")
     p.add_argument("--plots", action="store_true",
                    help="also write the reference's trace and image figures to --out "
                         "(needs matplotlib)")
@@ -316,6 +324,8 @@ def main(argv=None):
         if args.out is None:
             p.error("--plots writes its figures to --out DIR")
         _matplotlib()  # fail before the run, not after it
+    if args.spans and args.out is None:
+        p.error(f"--spans writes {SPANS_FILE} to --out DIR")
 
     kwargs = {}
     if args.psf == "gaussian" and args.no_fix_w:
@@ -362,10 +372,17 @@ def main(argv=None):
 
         space_mesh = make_spatial_mesh(args.space_mesh, device_type=torch.device(args.device).type)
     image = load_image(args.image, args.image_dir, size=args.size)
-    results, sapg, salsa, problem = run_demo(
-        cfg, image, n_chains=args.chains, dtype=dtype, device=args.device, solver=args.solver,
-        mesh=mesh, space_mesh=space_mesh,
-    )
+    if args.spans:
+        profiling.reset()
+        profiling.enable()
+    try:
+        results, sapg, salsa, problem = run_demo(
+            cfg, image, n_chains=args.chains, dtype=dtype, device=args.device,
+            solver=args.solver, mesh=mesh, space_mesh=space_mesh,
+        )
+    finally:
+        if args.spans:
+            profiling.disable()
     if own_world and _in_world():
         dist.destroy_process_group()
     if _in_world() and dist.get_rank() != 0:
@@ -376,6 +393,8 @@ def main(argv=None):
         with open(os.path.join(args.out, "results.json"), "w") as f:
             json.dump(results, f, indent=2)
         save_results(os.path.join(args.out, "traces.npz"), sapg, salsa)
+        if args.spans:
+            profiling.export(os.path.join(args.out, SPANS_FILE))
         if args.plots:
             save_plots(args.out, results, sapg, salsa, problem)
     return results

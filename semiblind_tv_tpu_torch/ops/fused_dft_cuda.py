@@ -35,8 +35,10 @@ and tests; the emulation for a CPU tensor).
 (`*_plain`: the JAX kernels' bodies on `torch.matmul`) for a CPU tensor and
 the kernel for a CUDA tensor; anything else raises.  With
 return_iters=True each also returns the prox's per-chain sweep counts
-(int32), which the JAX kernels keep to themselves.  Launch counters:
-DFT_LAUNCHES (D), IRDFT_LAUNCHES (E), PRODUCTS_LAUNCHES (`dft_products`).
+(int32), which the JAX kernels keep to themselves.  Launch counters
+(profiling.counters): `launches.D`, `launches.E`, `launches.dft_products`;
+while the recorder is on, D and E (and their plain versions) hand the
+prox's sweep counts to profiling.count_sweeps.
 """
 from __future__ import annotations
 
@@ -56,18 +58,15 @@ from semiblind_tv_tpu_torch.ops.tv_cuda import (
     per_chain,
     resident_launch,
 )
+from semiblind_tv_tpu_torch.runtime import profiling
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
 __all__ = [
     "myula_prox_tv_dft", "myula_prox_tv_dft_plain", "myula_prox_tv_irdft",
     "myula_prox_tv_irdft_plain", "dft_products", "dft_products_emulated", "dft_geometry",
     "gemm_plan", "gemm_tf32x3_emulated", "pack_factors", "packed_factors", "split_tf32",
-    "tf32_round", "DFT_LAUNCHES", "IRDFT_LAUNCHES", "PRODUCTS_LAUNCHES",
+    "tf32_round",
 ]
-
-DFT_LAUNCHES = 0        # kernel-D launches made by myula_prox_tv_dft
-IRDFT_LAUNCHES = 0      # kernel-E launches made by myula_prox_tv_irdft
-PRODUCTS_LAUNCHES = 0   # launches of the products alone made by dft_products
 
 _INVERSE = ("CM", "SM", "WCT", "WST")
 _FORWARD = ("CN", "SN")
@@ -97,12 +96,20 @@ def myula_prox_tv_irdft_plain(
 ):
     """The plain PyTorch version of kernel E (the body of _kernel_irdft); a
     scalar of one value a chain broadcasts over its chain."""
+    out = _irdft_plain("E", ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2,
+                       n_sweeps, tau, tol, positivity)
+    return out if return_iters else out[:3]
+
+
+def _irdft_plain(kernel, ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2,
+                 n_sweeps, tau, tol, positivity):
+    """(xn, proxn, tv, sweeps) of E's body, its sweeps counted as `kernel`'s."""
     gamma, lam, lam_theta, sigma2 = (per_chain(v, x) for v in (gamma, lam, lam_theta, sigma2))
     grad = _grad_plain(ghat, rdft_mats, sigma2)
     xn = myula_kernel_step(x, prox_cache, grad, gamma, lam, z, positivity)
     proxn, st = chambolle_prox(xn, lam_theta, n_sweeps, tau=tau, tol=tol)
-    out = (xn, proxn, tv_norm(xn))
-    return out + (st.iters,) if return_iters else out
+    profiling.count_sweeps(kernel, st.iters)
+    return xn, proxn, tv_norm(xn), st.iters
 
 
 def myula_prox_tv_dft_plain(
@@ -111,9 +118,9 @@ def myula_prox_tv_dft_plain(
     return_iters: bool = False,
 ):
     """The plain PyTorch version of kernel D (the body of _kernel_dft)."""
-    xn, proxn, tv, iters = myula_prox_tv_irdft_plain(
-        ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_sweeps, tau, tol,
-        positivity, return_iters=True)
+    xn, proxn, tv, iters = _irdft_plain(
+        "D", ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_sweeps, tau, tol,
+        positivity)
     cm, sm = rdft_mats["CM"], rdft_mats["SM"]
     fre = torch.matmul(xn, rdft_mats["CN"])
     fim = -torch.matmul(xn, rdft_mats["SN"])
@@ -434,6 +441,9 @@ def _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_
                 *head, *mid, ptr["gbuf"], ptr["ybuf"], grad.data_ptr(), ptr["ws"], *tail)
             out = (xn, proxn, tv)
     check_status(code, what)
+    kernel = "D" if forward else "E"
+    profiling.counters.add("launches." + kernel)
+    profiling.count_sweeps(kernel, iters)
     if return_iters:
         out = out + (iters,)
     return tuple(o[0] for o in out) if squeeze else out
@@ -446,7 +456,6 @@ def dft_products(ghat: torch.Tensor, x: torch.Tensor, rdft_mats, forward: bool =
     (None otherwise), x (B, M, N) taking xn's place; with return_scratch
     also the scratch dict (gbuf, ybuf and, forward, xbuf, fbuf).  A CPU
     tensor runs `dft_products_emulated`."""
-    global PRODUCTS_LAUNCHES
     what = "dft_products"
     if x.ndim != 3:
         raise ValueError(f"{what}: x must be (B, M, N), got {tuple(x.shape)}")
@@ -477,7 +486,7 @@ def dft_products(ghat: torch.Tensor, x: torch.Tensor, rdft_mats, forward: bool =
             ptr["xbuf"], ptr["fbuf"], ptr["ws"], ctypes.addressof(plan), ws_floats, B, M, N,
             torch.cuda.current_stream(x.device).cuda_stream)
     check_status(code, what)
-    PRODUCTS_LAUNCHES += 1
+    profiling.counters.add("launches.dft_products")
     if not return_scratch:
         return grad, xhat
     scratch = {k: flat[o:o + math.prod(v)].view(v) for k, (o, v) in layout.items() if k != "ws"}
@@ -505,17 +514,14 @@ def myula_prox_tv_dft(
     fourier.rdft_matrices(shape).  Signature of
     fused_step_pallas.myula_prox_tv_dft without `interpret` and
     `precision` (the port's products keep fp32 accuracy)."""
-    global DFT_LAUNCHES
     if x.device.type == "cpu":
         return myula_prox_tv_dft_plain(ghat, x, prox_cache, z, rdft_mats, gamma, lam,
                                        lam_theta, sigma2, n_sweeps, tau, tol, positivity,
                                        return_iters)
     if x.device.type != "cuda":
         raise ValueError(f"myula_prox_tv_dft: unsupported device {x.device}")
-    out = _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_sweeps,
-                  tau, tol, positivity, True, return_iters)
-    DFT_LAUNCHES += 1
-    return out
+    return _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_sweeps,
+                   tau, tol, positivity, True, return_iters)
 
 
 def myula_prox_tv_irdft(
@@ -537,14 +543,11 @@ def myula_prox_tv_irdft(
     """Kernel E: kernel D without the forward transform; returns (x_new,
     prox_new, tv).  Signature of fused_step_pallas.myula_prox_tv_irdft
     without `interpret` and `precision`."""
-    global IRDFT_LAUNCHES
     if x.device.type == "cpu":
         return myula_prox_tv_irdft_plain(ghat, x, prox_cache, z, rdft_mats, gamma, lam,
                                          lam_theta, sigma2, n_sweeps, tau, tol, positivity,
                                          return_iters)
     if x.device.type != "cuda":
         raise ValueError(f"myula_prox_tv_irdft: unsupported device {x.device}")
-    out = _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_sweeps,
-                  tau, tol, positivity, False, return_iters)
-    IRDFT_LAUNCHES += 1
-    return out
+    return _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_sweeps,
+                   tau, tol, positivity, False, return_iters)

@@ -40,11 +40,14 @@ seeds form (`myula_prox_tv_streamed(z=None, seeds=...)`).  Every pixel's
 noise is a pure function of (seed, pixel), so the kernel equals its plain
 version fed `philox_normals(seeds)`.
 
-Entry points and their launch counters: `myula_prox_tv` (B, LAUNCHES),
-`myula_prox_tv_rng` (C, RNG_LAUNCHES), `myula_prox_tv_blocked` (G and I,
-BLOCKED_LAUNCHES; BLOCKED_SEEDS_LAUNCHES of them in I's seeds form).  Each
-takes its plain version (`*_plain`) for a CPU tensor and the kernel for a
-CUDA tensor; anything else raises.
+Entry points and their launch counters (profiling.counters):
+`myula_prox_tv` (B, `launches.B`), `myula_prox_tv_rng` (C, `launches.C`),
+`myula_prox_tv_blocked` (G and I, `launches.blocked_step`;
+`launches.blocked_step.seeds` of them in I's seeds form).  Each takes its
+plain version (`*_plain`) for a CPU tensor and the kernel for a CUDA tensor;
+anything else raises.  While the recorder is on, each (and each plain
+version) hands the prox's per-chain sweep counts to
+profiling.count_sweeps under its kernel's letter (B, C, G or I).
 """
 from __future__ import annotations
 
@@ -54,7 +57,12 @@ import torch
 
 from semiblind_tv_tpu_torch.ops.rng import philox_normals
 from semiblind_tv_tpu_torch.ops.tv import chambolle_prox, tv_norm
-from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import STATE_COLS, blocked_geometry, check_geometry
+from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import (
+    STATE_COLS,
+    blocked_geometry,
+    blocked_kernel,
+    check_geometry,
+)
 from semiblind_tv_tpu_torch.ops.tv_cuda import (
     chain_scalars,
     chain_total,
@@ -65,19 +73,13 @@ from semiblind_tv_tpu_torch.ops.tv_cuda import (
     resident_launch,
     tile_sums,
 )
+from semiblind_tv_tpu_torch.runtime import profiling
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
 __all__ = [
     "myula_prox_tv", "myula_prox_tv_plain", "myula_prox_tv_rng", "myula_prox_tv_rng_plain",
     "myula_prox_tv_blocked", "myula_prox_tv_blocked_plain", "myula_prox_tv_emulated",
-    "LAUNCHES", "RNG_LAUNCHES",
-    "BLOCKED_LAUNCHES", "BLOCKED_SEEDS_LAUNCHES",
 ]
-
-LAUNCHES = 0                # kernel-B launches made by myula_prox_tv
-RNG_LAUNCHES = 0            # kernel-C launches made by myula_prox_tv_rng
-BLOCKED_LAUNCHES = 0        # blocked-kernel launches made by myula_prox_tv_blocked
-BLOCKED_SEEDS_LAUNCHES = 0  # of which in I's seeds form
 
 
 def check_seeds(seeds: torch.Tensor, like: torch.Tensor) -> None:
@@ -98,9 +100,17 @@ def myula_prox_tv_plain(
     """The plain PyTorch version: the JAX package's unfused path
     (myula_kernel_step → chambolle_prox from fresh duals → tv_norm); a
     scalar of one value a chain broadcasts over its chain."""
+    return _step_plain("B", x, prox_cache, grad_f, z, gamma, lam, lam_theta, n_sweeps, tau, tol,
+                       positivity)
+
+
+def _step_plain(kernel, x, prox_cache, grad_f, z, gamma, lam, lam_theta, n_sweeps, tau, tol,
+                positivity):
+    """myula_prox_tv_plain, its sweeps counted as `kernel`'s."""
     gamma, lam, lam_theta = (per_chain(v, x) for v in (gamma, lam, lam_theta))
     xn = myula_kernel_step(x, prox_cache, grad_f, gamma, lam, z, positivity)
-    proxn, _ = chambolle_prox(xn, lam_theta, n_sweeps, tau=tau, tol=tol)
+    proxn, st = chambolle_prox(xn, lam_theta, n_sweeps, tau=tau, tol=tol)
+    profiling.count_sweeps(kernel, st.iters)
     return xn, proxn, tv_norm(xn)
 
 
@@ -129,7 +139,8 @@ def _launch_step(x, prox_cache, grad_f, z, seeds, gamma, lam, lam_theta, n_sweep
                  positivity, what: str):
     """Check, allocate and launch kernel B (noise z) or C (noise drawn from
     seeds) on the card: csrc/tv_kernels.cu::sb_myula_step with σ² = 1, one
-    persistent launch (tv_cuda.resident_launch's geometry and workspace)."""
+    persistent launch (tv_cuda.resident_launch's geometry and workspace).
+    Counts the launch and hands the sweeps it ran to the recorder."""
     from semiblind_tv_tpu_torch._build import load_library
 
     squeeze = x.ndim == 2
@@ -165,6 +176,9 @@ def _launch_step(x, prox_cache, grad_f, z, seeds, gamma, lam, lam_theta, n_sweep
             float(tau), float(tol), int(bool(positivity)), strides, stream,
         )
     check_status(code, what)
+    kernel = "B" if z is not None else "C"
+    profiling.counters.add("launches." + kernel)
+    profiling.count_sweeps(kernel, iters)
     if squeeze:
         xn, proxn, tv = xn[0], proxn[0], tv[0]
     return xn, proxn, tv
@@ -186,17 +200,14 @@ def myula_prox_tv(
     """Returns (x_new, prox_new, tv(x_new)); (M, N) or (B, M, N) fields
     (tv is then shape (B,)).  Signature of fused_step_pallas.myula_prox_tv
     without `interpret`."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return myula_prox_tv_plain(
             x, prox_cache, grad_f, z, gamma, lam, lam_theta, n_sweeps, tau, tol, positivity
         )
     if x.device.type != "cuda":
         raise ValueError(f"myula_prox_tv: unsupported device {x.device}")
-    out = _launch_step(x, prox_cache, grad_f, z, None, gamma, lam, lam_theta, n_sweeps, tau,
-                       tol, positivity, "myula_prox_tv")
-    LAUNCHES += 1
-    return out
+    return _launch_step(x, prox_cache, grad_f, z, None, gamma, lam, lam_theta, n_sweeps, tau,
+                        tol, positivity, "myula_prox_tv")
 
 
 def myula_prox_tv_rng_plain(
@@ -206,9 +217,8 @@ def myula_prox_tv_rng_plain(
     """The plain PyTorch version: myula_prox_tv_plain with the noise
     philox_normals(seeds) in x's type."""
     z = philox_normals(seeds, x.shape[-2:], x.dtype)
-    return myula_prox_tv_plain(
-        x, prox_cache, grad_f, z, gamma, lam, lam_theta, n_sweeps, tau, tol, positivity
-    )
+    return _step_plain("C", x, prox_cache, grad_f, z, gamma, lam, lam_theta, n_sweeps, tau, tol,
+                       positivity)
 
 
 def myula_prox_tv_rng(
@@ -227,17 +237,14 @@ def myula_prox_tv_rng(
     """Kernel C: (x_new, prox_new, tv(x_new)) with the noise drawn in the
     kernel from seeds, (B, 2) int32 on x's device ((2,) for an (M, N)
     field).  Signature of fused_step_pallas.myula_prox_tv_rng."""
-    global RNG_LAUNCHES
     if x.device.type == "cpu":
         return myula_prox_tv_rng_plain(
             x, prox_cache, grad_f, seeds, gamma, lam, lam_theta, n_sweeps, tau, tol, positivity
         )
     if x.device.type != "cuda":
         raise ValueError(f"myula_prox_tv_rng: unsupported device {x.device}")
-    out = _launch_step(x, prox_cache, grad_f, None, seeds, gamma, lam, lam_theta, n_sweeps, tau,
-                       tol, positivity, "myula_prox_tv_rng")
-    RNG_LAUNCHES += 1
-    return out
+    return _launch_step(x, prox_cache, grad_f, None, seeds, gamma, lam, lam_theta, n_sweeps, tau,
+                        tol, positivity, "myula_prox_tv_rng")
 
 
 def myula_prox_tv_blocked_plain(
@@ -250,10 +257,9 @@ def myula_prox_tv_blocked_plain(
     chambolle_prox from fresh duals, tv_norm."""
     if z is None:
         z = philox_normals(seeds, x.shape[-2:], x.dtype)
-    return myula_prox_tv_plain(
-        x, prox_cache, grad_f / per_chain(sigma2, x), z, gamma, lam, lam_theta, n_sweeps, tau, tol,
-        positivity,
-    )
+    return _step_plain(blocked_kernel(x.shape[-2:], "G", "I"), x, prox_cache,
+                       grad_f / per_chain(sigma2, x), z, gamma, lam, lam_theta, n_sweeps, tau, tol,
+                       positivity)
 
 
 def myula_prox_tv_blocked(
@@ -276,7 +282,6 @@ def myula_prox_tv_blocked(
     fused_step_pallas.myula_prox_tv_streamed without the TPU options; σ² = 1
     is myula_prox_tv_tiled's form.  The noise is z, or, with z=None, drawn
     in the kernel from seeds ((B, 2) int32 on x's device): I's seeds form."""
-    global BLOCKED_LAUNCHES, BLOCKED_SEEDS_LAUNCHES
     if (z is None) == (seeds is None):
         raise ValueError("myula_prox_tv_blocked takes exactly one of z and seeds")
     if x.device.type == "cpu":
@@ -328,9 +333,10 @@ def myula_prox_tv_blocked(
             int(bool(positivity)), strides, stream,
         )
     check_status(code, "myula_prox_tv_blocked")
-    BLOCKED_LAUNCHES += 1
+    profiling.counters.add("launches.blocked_step")
     if seeds is not None:
-        BLOCKED_SEEDS_LAUNCHES += 1
+        profiling.counters.add("launches.blocked_step.seeds")
+    profiling.count_sweeps(blocked_kernel((M, N), "G", "I"), state[:, 0])
     if squeeze:
         xn, proxn, tv = xn[0], proxn[0], tv[0]
     return xn, proxn, tv

@@ -35,11 +35,12 @@ from semiblind_tv_tpu_torch.ops.tv_cuda import (
     per_chain,
     scalar_on,
 )
+from semiblind_tv_tpu_torch.runtime import profiling
 
 __all__ = [
     "chambolle_prox_blocked", "chambolle_prox_blocked_plain",
     "chambolle_prox_blocked_emulated", "blocked_geometry", "blocked_rung",
-    "check_geometry", "pass_split", "halo_factor", "LAUNCHES", "FRESH_LAUNCHES",
+    "check_geometry", "pass_split", "halo_factor", "blocked_kernel",
     "SWEEP_BLOCK",
 ]
 
@@ -55,8 +56,10 @@ REDUCE_THREADS = 256
 WINDOW_COLS = 32 * WARPS_X             # 128
 WINDOW_ROWS = STRIP_ROWS * WARPS_Y     # 64
 
-LAUNCHES = 0         # blocked-prox launches (both forms) made by chambolle_prox_blocked
-FRESH_LAUNCHES = 0   # of which in the fresh (zero-dual) form
+# Launch counters (profiling.counters): `launches.blocked_prox`, blocked-prox
+# launches (both forms) made by chambolle_prox_blocked; `launches.blocked_prox.fresh`,
+# of which in the fresh (zero-dual) form.  Sweep counters: `sweeps.F` (up to
+# 1024² pixels) and `sweeps.H` (above), by blocked_kernel.
 
 chambolle_prox_blocked_plain = chambolle_prox_plain  # ops/tv.py::chambolle_prox
 
@@ -70,6 +73,12 @@ def blocked_rung(shape) -> Optional[str]:
     if max(M, N) <= 512:
         return None
     return "tiled" if M * N <= 1024 * 1024 else "streamed"
+
+
+def blocked_kernel(shape, tiled: str, streamed: str) -> str:
+    """The TPU kernel a blocked call on an (M, N) image stands for: `streamed`
+    on the streamed rung, `tiled` below it (a forced call at ≤512² too)."""
+    return streamed if blocked_rung(shape) == "streamed" else tiled
 
 
 def pass_split(max_iter: int) -> Tuple[int, ...]:
@@ -132,7 +141,6 @@ def chambolle_prox_blocked(
     or (B, M, N).  Signature of tv_cuda.chambolle_prox_cuda.  duals warm-
     start the ascent (SALSA's 'dualvars', SALSA_v2.m:429); return_state=False
     (fresh duals only) returns zero px/py."""
-    global LAUNCHES, FRESH_LAUNCHES
     if g.device.type == "cpu":
         return chambolle_prox_blocked_plain(g, lam, max_iter, tau, tol, duals, return_state)
     if g.device.type != "cuda":
@@ -180,9 +188,10 @@ def chambolle_prox_blocked(
             B, M, N, TYb, TXb, K, int(max_iter), float(tau), float(tol), strides, stream,
         )
     check_status(code, "chambolle_prox_blocked")
-    LAUNCHES += 1
+    profiling.counters.add("launches.blocked_prox")
     if duals is None:
-        FRESH_LAUNCHES += 1
+        profiling.counters.add("launches.blocked_prox.fresh")
+    profiling.count_sweeps(blocked_kernel((M, N), "F", "H"), state[:, 0])
     if px is None:
         px = py = torch.zeros_like(f)
     iters = state[:, 0].contiguous()

@@ -31,13 +31,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from semiblind_tv_tpu_torch.ops.tv import ChambolleState, chambolle_prox, divergence
+from semiblind_tv_tpu_torch.runtime import profiling
 
 __all__ = [
     "chambolle_prox_cuda", "chambolle_prox_plain", "chambolle_prox_resident_emulated",
     "dual_ascent_loop", "neumann_div", "resident_geometry", "resident_capacity",
     "resident_occupancy", "resident_workspace", "resident_floats", "barrier_error",
     "tile_sums", "chain_total", "scalar_on", "chain_scalars", "per_chain",
-    "LAUNCHES", "FRESH_LAUNCHES", "TILE_ROWS", "TILE_COLS",
+    "TILE_ROWS", "TILE_COLS",
 ]
 
 # Constants of csrc/tv_kernels.cu: warps across and down a block, rows of a
@@ -55,8 +56,10 @@ BLOCKS_PER_SM = 2
 DESIGN_CAPACITY = BLOCKS_PER_SM * 132
 WS_INT_HEAD = 2                         # error code, exit counter
 
-LAUNCHES = 0         # kernel-A launches (both forms) made by chambolle_prox_cuda
-FRESH_LAUNCHES = 0   # of which in the fresh (zero-dual) form
+# Launch counters (profiling.counters): `launches.A`, kernel-A launches (both
+# forms) made by chambolle_prox_cuda; `launches.A.fresh`, of which in the
+# fresh (zero-dual) form.  Sweep counters: `sweeps.A1` (warm) and
+# `sweeps.A2` (fresh), the plain version's included.
 
 
 def neumann_div(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
@@ -85,6 +88,7 @@ def chambolle_prox_plain(
     if not return_state and duals is not None:
         raise ValueError("return_state=False requires duals=None (fresh duals)")
     f, st = chambolle_prox(g, per_chain(lam, g), max_iter, tau=tau, tol=tol, duals=duals)
+    profiling.count_sweeps("A2" if duals is None else "A1", st.iters)
     if not return_state:
         zero = torch.zeros_like(f)
         st = ChambolleState(px=zero, py=zero, iters=st.iters, err=st.err)
@@ -300,7 +304,6 @@ def chambolle_prox_cuda(
     return_state=False (fresh duals only) returns zero px/py, as the JAX
     kernel does.  λ may be a Python number, a one-element device tensor or
     one value a chain (scalar_on)."""
-    global LAUNCHES, FRESH_LAUNCHES
     if g.device.type == "cpu":
         return chambolle_prox_plain(g, lam, max_iter, tau, tol, duals, return_state)
     if g.device.type != "cuda":
@@ -341,9 +344,10 @@ def chambolle_prox_cuda(
             float(tau), float(tol), strides, stream,
         )
     check_status(code, "chambolle_prox_cuda")
-    LAUNCHES += 1
+    profiling.counters.add("launches.A")
     if duals is None:
-        FRESH_LAUNCHES += 1
+        profiling.counters.add("launches.A.fresh")
+    profiling.count_sweeps("A2" if duals is None else "A1", iters)
     if px is None:
         px = py = _zeros_like(f)
     if squeeze:

@@ -56,6 +56,7 @@ from semiblind_tv_tpu_torch.runtime.checkpoint import (
     save_checkpoint_arrays,
 )
 from semiblind_tv_tpu_torch.runtime.problem import Problem
+from semiblind_tv_tpu_torch.runtime.profiling import fold_sweeps, span
 from semiblind_tv_tpu_torch.sapg.estimator import (
     SAPGResult,
     _host,
@@ -97,8 +98,9 @@ def build_sharded_sapg(
     lie on this rank's device.  `warmup` overrides cfg.sapg.warmup (the
     bare stepper passes 1: no warm-up iterations).
 
-    Returns a dict: warm(X0, draw) -> (carry, logpi_wu (n_warm, D_l),
-    logpi0 (D_l,)); scan(carry, iis, draw) -> (carry, host traces of
+    Returns a dict: start(X0) -> the warm-up's first carry; warm(carry,
+    draw) -> (carry, logpi_wu (n_warm, D_l), logpi0 (D_l,)); scan(carry,
+    iis, draw) -> (carry, host traces of
     (T, D_l)); init_x(x0) -> X0; and local (the rank's problem indices),
     rows (its chains' slice of a problem's C), n_chains (C), n_warm,
     psf_names, consts, aux, group (the chains group, None for one rank),
@@ -141,14 +143,23 @@ def build_sharded_sapg(
             ys = torch.as_tensor(x0, dtype=dtype, device=device).expand((D_l,) + shape)
         return ys[:, None].expand((D_l, C_l) + shape).reshape((D_l * C_l,) + shape).contiguous()
 
-    def warm(X, draw):
-        """Warm-up (SAPG_algorithm_Guassian.m:67-93) from X; the initial
-        prox (A2 on the card) takes λθ₀ per problem, per chain."""
+    def start(X):
+        """The warm-up's first carry (X, X̂, prox) from X; the initial prox
+        (A2 on the card) takes λθ₀ per problem, per chain."""
         prox = aux["prox_b"](X, (consts["lam"] * aux["theta0"]).repeat_interleave(C_l))[0]
-        carry = (X, blur.rfft(X), prox)
+        return X, blur.rfft(X), prox
+
+    def warm(carry, draw):
+        """Warm-up (SAPG_algorithm_Guassian.m:67-93) from start's carry."""
         logpi_wu = torch.empty((n_warm, D_l), dtype=dtype, device=device)
-        for t in range(n_warm):
-            carry, logpi_wu[t] = aux["warm_step"](carry, consts, draw())
+        with span("sapg.warmup"):
+            for t in range(n_warm):
+                with span("sapg.warm_step"):
+                    with span("sapg.noise"):
+                        Z = draw()
+                    carry, logpi = aux["warm_step"](carry, consts, Z)
+                    with span("sapg.trace"):
+                        logpi_wu[t] = logpi
         X, Xhat, prox = carry
         # logPiTraceX(1): logPi at the warm-start sample with the init params
         logpi0 = aux["logpi_init"](Xhat, aux["tv_b"](X), consts)
@@ -161,21 +172,28 @@ def build_sharded_sapg(
     def scan(carry, iis, draw):
         """The main iterations iis; host traces {name: (T, D_l)}, read back
         once."""
-        iis = list(iis)
-        names, buf = None, None
-        for t, ii in enumerate(iis):
-            carry, tr = step(carry, ii, consts, draw())
+        with span("sapg.segment"):
+            iis = list(iis)
+            names, buf = None, None
+            for t, ii in enumerate(iis):
+                with span("sapg.step"):
+                    with span("sapg.noise"):
+                        Z = draw()
+                    carry, tr = step(carry, ii, consts, Z)
+                    with span("sapg.trace"):
+                        if buf is None:
+                            names = list(tr)
+                            buf = torch.empty((len(names), len(iis), D_l), dtype=dtype,
+                                              device=device)
+                        buf[:, t] = torch.stack([tr[n] for n in names])
             if buf is None:
-                names = list(tr)
-                buf = torch.empty((len(names), len(iis), D_l), dtype=dtype, device=device)
-            buf[:, t] = torch.stack([tr[n] for n in names])
-        if buf is None:
-            return carry, {}
-        host = buf.cpu().numpy()
-        return carry, {n: host[i] for i, n in enumerate(names)}
+                return carry, {}
+            host = buf.cpu().numpy()
+            return carry, {n: host[i] for i, n in enumerate(names)}
 
     return dict(
-        warm=warm, scan=scan, init_x=init_x, local=local, rows=slice(ci * C_l, (ci + 1) * C_l),
+        start=start, warm=warm, scan=scan, init_x=init_x, local=local,
+        rows=slice(ci * C_l, (ci + 1) * C_l),
         n_chains=C, chains_per_shard=C_l, n_warm=n_warm, psf_names=aux["psf_names"],
         consts=consts, aux=aux, group=group, n_group=S,
         data_group=mesh.get_group(DATA_AXIS) if Dm > 1 else None, shape=shape,
@@ -319,55 +337,61 @@ def run_sapg_sharded(
             and checkpoint_path is not None:
         raise ValueError("a multi-process run checkpoints to a directory: "
                          "checkpoint_backend='orbax'")
-    built = build_sharded_sapg(problems, mesh, chains_per_shard, route=route)
-    cfg = problems[0].cfg
-    device = built["device"]
-    draw, gens = _problem_sources(problems, generators, noise, seeds, built)
+    with span("sapg.run"):
+        with span("sapg.prologue"):
+            built = build_sharded_sapg(problems, mesh, chains_per_shard, route=route)
+            cfg = problems[0].cfg
+            device = built["device"]
+            draw, gens = _problem_sources(problems, generators, noise, seeds, built)
 
-    t0 = time.perf_counter()
-    resume = checkpoint_path is not None and os.path.exists(checkpoint_path)
-    logpi = {}
-    if resume:
-        carry = None   # restore_fn supplies it, with the warm-up trace
-    else:
-        carry, logpi["wu"], logpi["0"] = built["warm"](built["init_x"](x0), draw)
+            t0 = time.perf_counter()
+            resume = checkpoint_path is not None and os.path.exists(checkpoint_path)
+            logpi = {}
+            if not resume:
+                carry = built["start"](built["init_x"](x0))
+        if resume:
+            carry = None   # restore_fn supplies it, with the warm-up trace
+        else:
+            carry, logpi["wu"], logpi["0"] = built["warm"](carry, draw)
 
-    def restore():
-        carry, done, traces, logpi["wu"], logpi["0"] = _restore_state(
-            checkpoint_path, device, gens, checkpoint_backend)
-        return carry, done, traces
+        def restore():
+            carry, done, traces, logpi["wu"], logpi["0"] = _restore_state(
+                checkpoint_path, device, gens, checkpoint_backend)
+            return carry, done, traces
 
-    def save(carry, done, seg_traces):
-        _save_state(checkpoint_path, carry, done, seg_traces, logpi["wu"], logpi["0"], gens,
-                    checkpoint_backend)
+        def save(carry, done, seg_traces):
+            _save_state(checkpoint_path, carry, done, seg_traces, logpi["wu"], logpi["0"], gens,
+                        checkpoint_backend)
 
-    carry, seg_traces = run_segmented_scan(
-        lambda c, iis: built["scan"](c, iis, draw), carry, cfg.sapg.samples,
-        checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path, save_fn=save,
-        restore_fn=restore, fault_hook=fault_hook, nan_guard=nan_guard,
-        max_restores=max_restores,
-    )
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    exec_time = time.perf_counter() - t0
-    traces = _merge_traces(seg_traces) if seg_traces else {}
+        carry, seg_traces = run_segmented_scan(
+            lambda c, iis: built["scan"](c, iis, draw), carry, cfg.sapg.samples,
+            checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path, save_fn=save,
+            restore_fn=restore, fault_hook=fault_hook, nan_guard=nan_guard,
+            max_restores=max_restores,
+        )
+        with span("sapg.assemble"):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            exec_time = time.perf_counter() - t0
+            fold_sweeps()
+            traces = _merge_traces(seg_traces) if seg_traces else {}
 
-    logpi_wu, logpi0 = _host(logpi["wu"]), _host(logpi["0"])
-    X_all = _gather_chains(_host(carry[0]), built)
-    extra = carry[6] if len(carry) > 6 else {}
-    moments = {k: _gather_chains(_host(v), built) for k, v in extra.items()
-               if k != "pm_count"}
-    results = []
-    for i, d in enumerate(built["local"]):
-        extra_d = {k: v[i] for k, v in moments.items()}
-        if extra:
-            extra_d["pm_count"] = extra["pm_count"]
-        results.append(assemble_result(
-            problems[d], built["psf_names"], {k: v[:, i] for k, v in traces.items()},
-            logpi_wu[:, i] if built["n_warm"] > 0 else np.zeros(0), float(logpi0[i]),
-            X_all[i], extra_d, exec_time,
-        ))
-    return _gather_data(results, built)
+            logpi_wu, logpi0 = _host(logpi["wu"]), _host(logpi["0"])
+            X_all = _gather_chains(_host(carry[0]), built)
+            extra = carry[6] if len(carry) > 6 else {}
+            moments = {k: _gather_chains(_host(v), built) for k, v in extra.items()
+                       if k != "pm_count"}
+            results = []
+            for i, d in enumerate(built["local"]):
+                extra_d = {k: v[i] for k, v in moments.items()}
+                if extra:
+                    extra_d["pm_count"] = extra["pm_count"]
+                results.append(assemble_result(
+                    problems[d], built["psf_names"], {k: v[:, i] for k, v in traces.items()},
+                    logpi_wu[:, i] if built["n_warm"] > 0 else np.zeros(0), float(logpi0[i]),
+                    X_all[i], extra_d, exec_time,
+                ))
+            return _gather_data(results, built)
 
 
 def run_sapg_sharded_steps(problems, mesh, generators, chains_per_shard=1, n_steps=100,
@@ -378,7 +402,7 @@ def run_sapg_sharded_steps(problems, mesh, generators, chains_per_shard=1, n_ste
     problem (D,), n_chains = C)."""
     built = build_sharded_sapg(problems, mesh, chains_per_shard, warmup=1, route=route)
     draw, _ = _problem_sources(problems, generators, None, None, built)
-    carry, _, _ = built["warm"](built["init_x"](), draw)
+    carry, _, _ = built["warm"](built["start"](built["init_x"]()), draw)
     carry, traces = built["scan"](carry, range(2, n_steps + 2), draw)
     per_problem = _gather_data(
         [(traces["theta"][:, i], float(carry[4][i])) for i in range(len(built["local"]))], built)

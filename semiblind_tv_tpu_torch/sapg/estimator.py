@@ -56,6 +56,17 @@ are 0-d device tensors, the SA updates use torch.clamp, and the scalar
 traces go into preallocated device tensors that are copied to the host
 once, after the loop: nothing inside the loop waits for the device.
 
+Spans (runtime/profiling.py; recorded only while the recorder is on):
+`sapg.run` around a run, with `sapg.prologue` (set-up, the initial prox and
+transform), `sapg.warmup` (one `sapg.warm_step` a warm-up step),
+`sapg.segment` (one a scan segment, its host read-back included) and
+`sapg.assemble` (the synchronize, the sweep counts folded, the host
+copies and assemble_result); each main iteration is a `sapg.step` with the
+children `sapg.noise`, `psf.otf` (a free PSF parameter only),
+`sapg.residual` (Ĝ = conj(H)·(H·X̂ − ŷ) and λθ), `fourier.irfft`,
+`kernel.step`, `fourier.rfft`, `sapg.stats`, `sapg.update` and
+`sapg.trace`, and a warm step has those that apply.
+
 The noise source is injectable: `noise(shape) -> (B, M, N) tensor` is
 called once per warm-up and main step, in that order; the default draws
 standard normals from the estimator's torch.Generator.  With in-kernel
@@ -86,6 +97,7 @@ from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_p
 from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain, per_chain
 from semiblind_tv_tpu_torch.runtime.checkpoint import load_checkpoint_arrays, save_checkpoint_arrays
 from semiblind_tv_tpu_torch.runtime.problem import Problem
+from semiblind_tv_tpu_torch.runtime.profiling import fold_sweeps, span
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
 __all__ = [
@@ -412,15 +424,21 @@ def make_general_sapg_step(
         kw = dict(n_sweeps=sapg.chambolle_iters, tau=sapg.chambolle_tau,
                   tol=sapg.chambolle_tol, positivity=positivity)
         if fuse_dft(C):
-            return myula_prox_tv_dft(ghat, X, prox, Z, blur.rdft, gam, lam, lam_theta, sigma2,
-                                     **kw)
+            with span("kernel.step"):
+                return myula_prox_tv_dft(ghat, X, prox, Z, blur.rdft, gam, lam, lam_theta,
+                                         sigma2, **kw)
         if irdft_ok and fuse_irdft and not ikr:
-            Xn, proxn, tv = myula_prox_tv_irdft(ghat, X, prox, Z, blur.rdft, gam, lam,
-                                                lam_theta, sigma2, **kw)
+            with span("kernel.step"):
+                Xn, proxn, tv = myula_prox_tv_irdft(ghat, X, prox, Z, blur.rdft, gam, lam,
+                                                    lam_theta, sigma2, **kw)
         else:
-            Xn, proxn, tv = spatial_segment(X, prox, blur.irfft(ghat), sigma2, Z, gam, lam,
-                                            lam_theta, positivity, ikr)
-        return Xn, proxn, tv, blur.rfft(Xn)
+            with span("fourier.irfft"):
+                grad_raw = blur.irfft(ghat)
+            with span("kernel.step"):
+                Xn, proxn, tv = spatial_segment(X, prox, grad_raw, sigma2, Z, gam, lam,
+                                                lam_theta, positivity, ikr)
+        with span("fourier.rfft"):
+            return Xn, proxn, tv, blur.rfft(Xn)
 
     def as_t(v):
         return torch.tensor(v, dtype=dtype, device=device)
@@ -461,15 +479,20 @@ def make_general_sapg_step(
     def step(carry, ii, consts, Z):
         yhat, gam, lam = consts["yhat"], consts["gam"], consts["lam"]
         X, Xhat, prox, theta, sigma2, params = carry[:6]
-        H, dHs = (H0_c, {}) if all_fixed else otfs(params)
-        Hl = H[None] if all_fixed else lead(H)
-        Rhat = Hl * by_problem(Xhat) - lead(yhat)
-        # prox lag: the MYULA update uses the prox of the previous iterate,
-        # and the new prox is taken at the current (pre-update) θ
-        Xn, proxn, tv, Xhatn = advance(
-            X, prox, torch.conj(Hl) * Rhat, sigma2, Z, gam, lam, lam * theta,
-            sapg.positivity, True,
-        )
+        if all_fixed:
+            H, dHs = H0_c, {}
+        else:
+            with span("psf.otf"):
+                H, dHs = otfs(params)
+        with span("sapg.residual"):
+            Hl = H[None] if all_fixed else lead(H)
+            Rhat = Hl * by_problem(Xhat) - lead(yhat)
+            ghat = torch.conj(Hl) * Rhat
+            # prox lag: the MYULA update uses the prox of the previous
+            # iterate, and the new prox is taken at the current (pre-update) θ
+            lam_theta = lam * theta
+        Xn, proxn, tv, Xhatn = advance(X, prox, ghat, sigma2, Z, gam, lam, lam_theta,
+                                       sapg.positivity, True)
 
         def chain_stats(H, Xhn, yhat, tv, theta, sigma2, *dH):
             Rn = H[None] * Xhn - yhat[None]
@@ -484,8 +507,16 @@ def make_general_sapg_step(
             )
 
         Hp = H.expand(problems, *H.shape) if batched and all_fixed else H
-        stats = problem_means(chain_stats, Hp, by_problem(Xhatn), yhat, by_problem(tv), theta,
-                              sigma2, *(dHs[n] for n in free_names))
+        with span("sapg.stats"):
+            stats = problem_means(chain_stats, Hp, by_problem(Xhatn), yhat, by_problem(tv),
+                                  theta, sigma2, *(dHs[n] for n in free_names))
+        with span("sapg.update"):
+            return update(carry, ii, consts, stats, Xn, Xhatn, proxn)
+
+    def update(carry, ii, consts, stats, Xn, Xhatn, proxn):
+        """The SA updates of θ, σ² and the free PSF parameters from the
+        step's statistics, Welford's, and the step's (carry, trace)."""
+        theta, sigma2, params = carry[3:6]
         G_t, G_s = stats["G_t"], stats["G_s"]
         G_p = {n: stats[f"G_{n}"] for n in free_names}
 
@@ -558,12 +589,14 @@ def make_general_sapg_step(
         yhat, gam, lam = consts["yhat"], consts["gam"], consts["lam"]
         sigma0 = consts["sigma2_init"]
         X, Xhat, prox = carry
-        Rhat = H0_c[None] * by_problem(Xhat) - lead(yhat)
-        Xn, proxn, tv, Xhatn = advance(
-            X, prox, torch.conj(H0_c)[None] * Rhat, sigma0, Z, gam, lam, lam * theta0_c,
-            True, False,
-        )
-        return (Xn, Xhatn, proxn), logpi_init(Xhatn, tv, consts)
+        with span("sapg.residual"):
+            Rhat = H0_c[None] * by_problem(Xhat) - lead(yhat)
+            ghat = torch.conj(H0_c)[None] * Rhat
+            lam_theta = lam * theta0_c
+        Xn, proxn, tv, Xhatn = advance(X, prox, ghat, sigma0, Z, gam, lam, lam_theta, True,
+                                       False)
+        with span("sapg.stats"):
+            return (Xn, Xhatn, proxn), logpi_init(Xhatn, tv, consts)
 
     def logpi_init(Xhat, tv, consts):
         """logπ at the initial θ and σ², the mean over a problem's chains."""
@@ -929,56 +962,73 @@ def run_sapg(
             checkpoint_backend=checkpoint_backend, fault_hook=fault_hook, nan_guard=nan_guard,
             max_restores=max_restores,
         )[0]
-    cfg = problem.cfg
-    sapg = cfg.sapg
-    blur = problem.blur
-    dtype = blur.dtype
-    device = problem.device
-    step, aux = make_sapg_step(problem, n_chains, route=route)
-    shape = (n_chains,) + tuple(blur.shape)
-    source_generator = None  # the generator whose state is the noise state
-    if aux["in_kernel_rng"](n_chains):
-        if seeds is None:
-            if generator is None:
-                raise ValueError("run_sapg needs a generator or a seed source")
-            seeds = generator_seeds(generator, device)
-            source_generator = generator
-        draw = lambda: seeds(n_chains)  # noqa: E731
-    else:
-        if noise is None:
-            if generator is None:
-                raise ValueError("run_sapg needs a generator or a noise source")
-            noise = generator_noise(generator, dtype, device)
-            source_generator = generator
-        draw = lambda: noise(shape)  # noqa: E731
+    with span("sapg.run"):
+        return _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
+                         checkpoint_every, checkpoint_path, checkpoint_backend, fault_hook,
+                         max_restores)
 
-    psf_names = aux["psf_names"]
-    prox_b, tv_b, pnorm2 = aux["prox_b"], aux["tv_b"], aux["pnorm2"]
-    warm_step, consts = aux["warm_step"], aux["consts"]
-    lam = aux["lam"]
-    theta0, params0, H0 = aux["theta0"], aux["params0"], aux["H0"]
-    sigma0 = problem.sigma2_init
-    yhat = problem.yhat
 
-    if x0 is None:
-        x0 = problem.y  # op.X0 defaults to y (SAPG_algorithm_Guassian.m:10-12)
-    X = torch.as_tensor(x0, dtype=dtype, device=device).expand(shape).contiguous()
+def _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
+              checkpoint_every, checkpoint_path, checkpoint_backend, fault_hook, max_restores):
+    """run_sapg on one device, inside its `sapg.run` span."""
+    with span("sapg.prologue"):
+        cfg = problem.cfg
+        sapg = cfg.sapg
+        blur = problem.blur
+        dtype = blur.dtype
+        device = problem.device
+        step, aux = make_sapg_step(problem, n_chains, route=route)
+        shape = (n_chains,) + tuple(blur.shape)
+        source_generator = None  # the generator whose state is the noise state
+        if aux["in_kernel_rng"](n_chains):
+            if seeds is None:
+                if generator is None:
+                    raise ValueError("run_sapg needs a generator or a seed source")
+                seeds = generator_seeds(generator, device)
+                source_generator = generator
+            draw = lambda: seeds(n_chains)  # noqa: E731
+        else:
+            if noise is None:
+                if generator is None:
+                    raise ValueError("run_sapg needs a generator or a noise source")
+                noise = generator_noise(generator, dtype, device)
+                source_generator = generator
+            draw = lambda: noise(shape)  # noqa: E731
 
-    n_warm = max(sapg.warmup - 1, 0)
+        psf_names = aux["psf_names"]
+        prox_b, tv_b, pnorm2 = aux["prox_b"], aux["tv_b"], aux["pnorm2"]
+        warm_step, consts = aux["warm_step"], aux["consts"]
+        lam = aux["lam"]
+        theta0, params0, H0 = aux["theta0"], aux["params0"], aux["H0"]
+        sigma0 = problem.sigma2_init
+        yhat = problem.yhat
 
-    t0 = time.perf_counter()
-    resume = checkpoint_path is not None and os.path.exists(checkpoint_path)
-    if resume:
-        # the checkpoint carries the warm-up trace — skip the warm-up phase
-        # entirely; restore_fn below supplies the carry
-        carry = logpi_wu = logpi0 = None
-    else:
-        prox = prox_b(X, lam * theta0)[0]
-        Xhat = blur.rfft(X)
-        logpi_wu = torch.empty((n_warm,), dtype=dtype, device=device)
-        carry = (X, Xhat, prox)
-        for t in range(n_warm):
-            carry, logpi_wu[t] = warm_step(carry, consts, draw())
+        if x0 is None:
+            x0 = problem.y  # op.X0 defaults to y (SAPG_algorithm_Guassian.m:10-12)
+        X = torch.as_tensor(x0, dtype=dtype, device=device).expand(shape).contiguous()
+
+        n_warm = max(sapg.warmup - 1, 0)
+
+        t0 = time.perf_counter()
+        resume = checkpoint_path is not None and os.path.exists(checkpoint_path)
+        if resume:
+            # the checkpoint carries the warm-up trace — skip the warm-up phase
+            # entirely; restore_fn below supplies the carry
+            carry = logpi_wu = logpi0 = None
+        else:
+            prox = prox_b(X, lam * theta0)[0]
+            Xhat = blur.rfft(X)
+            logpi_wu = torch.empty((n_warm,), dtype=dtype, device=device)
+            carry = (X, Xhat, prox)
+    if not resume:
+        with span("sapg.warmup"):
+            for t in range(n_warm):
+                with span("sapg.warm_step"):
+                    with span("sapg.noise"):
+                        Z = draw()
+                    carry, logpi = warm_step(carry, consts, Z)
+                    with span("sapg.trace"):
+                        logpi_wu[t] = logpi
         X, Xhat, prox = carry
         # logPiTraceX(1) = logPi at the warm-start sample with the init params
         res2_0 = pnorm2(H0[None] * Xhat - yhat[None])
@@ -989,17 +1039,22 @@ def run_sapg(
                            pm_count=0.0),)
 
     def scan_seg(carry, iis):
-        iis = list(iis)
-        names = None
-        buf = None
-        for t, ii in enumerate(iis):
-            carry, tr = step(carry, ii, draw())
-            if buf is None:
-                names = list(tr)
-                buf = torch.empty((len(names), len(iis)), dtype=dtype, device=device)
-            buf[:, t] = torch.stack([tr[n] for n in names])
-        host = buf.cpu().numpy() if buf is not None else None
-        return carry, {n: host[i] for i, n in enumerate(names)} if names else {}
+        with span("sapg.segment"):
+            iis = list(iis)
+            names = None
+            buf = None
+            for t, ii in enumerate(iis):
+                with span("sapg.step"):
+                    with span("sapg.noise"):
+                        Z = draw()
+                    carry, tr = step(carry, ii, Z)
+                    with span("sapg.trace"):
+                        if buf is None:
+                            names = list(tr)
+                            buf = torch.empty((len(names), len(iis)), dtype=dtype, device=device)
+                        buf[:, t] = torch.stack([tr[n] for n in names])
+            host = buf.cpu().numpy() if buf is not None else None
+            return carry, {n: host[i] for i, n in enumerate(names)} if names else {}
 
     def restore():
         nonlocal logpi_wu, logpi0
@@ -1025,21 +1080,23 @@ def run_sapg(
         nan_guard=nan_guard,
         max_restores=max_restores,
     )
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    exec_time = time.perf_counter() - t0
-    traces = _merge_traces(seg_traces) if seg_traces else {}
+    with span("sapg.assemble"):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        exec_time = time.perf_counter() - t0
+        fold_sweeps()
+        traces = _merge_traces(seg_traces) if seg_traces else {}
 
-    return assemble_result(
-        problem,
-        psf_names,
-        traces,
-        _host(logpi_wu) if n_warm > 0 else np.zeros(0),
-        float(logpi0),
-        _host(carry[0]),
-        carry[6] if len(carry) > 6 else {},
-        exec_time,
-    )
+        return assemble_result(
+            problem,
+            psf_names,
+            traces,
+            _host(logpi_wu) if n_warm > 0 else np.zeros(0),
+            float(logpi0),
+            _host(carry[0]),
+            carry[6] if len(carry) > 6 else {},
+            exec_time,
+        )
 
 
 def _psf_error_trace(problem: Problem, psf_traces: Dict[str, np.ndarray]) -> np.ndarray:

@@ -17,6 +17,10 @@ updates, no host sync per iteration).  The port also checks the stop flag
 on the host every `_CHECK_EVERY` iterations and leaves the loop once it is
 set; the remaining trace entries are then filled with the frozen values, so
 the result equals running all `max_iter` iterations.
+
+Spans (runtime/profiling.py, while the recorder is on): one `salsa.iter`
+an outer iteration, the prox call in it as `kernel.prox`; the prox's sweep
+counts are folded into their counters after the traces' host read.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from semiblind_tv_tpu_torch.ops.fourier import BlurOperator
 from semiblind_tv_tpu_torch.ops.tv import tv_norm
 from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_prox_blocked
 from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain
+from semiblind_tv_tpu_torch.runtime.profiling import fold_sweeps, span
 
 __all__ = ["SALSAResult", "salsa_tv", "soft_threshold", "l1_norm", "resolve_salsa_prox_mode",
            "SALSA_PROX"]
@@ -139,51 +144,55 @@ def salsa_tv(
 
     ran = 0
     for k in range(max_iter):
-        active = torch.logical_not(done)
-        un, st = prox(
-            x - bu, thresh, tv_iters, tau=chambolle_tau, tol=chambolle_tol,
-            duals=(pux, puy),
-        )
-        r = un + bu
-        rhat = blur.rfft(r)
-        xhat_n = inv_filter * (ATy_hat + mu * rhat)
-        xn = blur.irfft(xhat_n)
-        bun = bu + (un - xn)
+        with span("salsa.iter"):
+            active = torch.logical_not(done)
+            with span("kernel.prox"):
+                un, st = prox(
+                    x - bu, thresh, tv_iters, tau=chambolle_tau, tol=chambolle_tol,
+                    duals=(pux, puy),
+                )
+            r = un + bu
+            rhat = blur.rfft(r)
+            xhat_n = inv_filter * (ATy_hat + mu * rhat)
+            xn = blur.irfft(xhat_n)
+            bun = bu + (un - xn)
 
-        # objective via Parseval: ½‖y − A x‖² + τ TV(u)
-        resid2 = pnorm2(yhat - H * xhat_n)
-        obj = 0.5 * resid2 + tau * tv_norm(un)
-        dist = torch.linalg.norm(xn - un) / torch.sqrt(torch.sum(xn * xn) + torch.sum(un * un))
-        if stop_criterion == 1:
-            crit = torch.abs(obj - prev_obj) / prev_obj
-        elif stop_criterion == 2:
-            crit = torch.linalg.norm(xn - x) / torch.linalg.norm(xn)
-        else:
-            crit = obj
-        # the reference only tests the stop from the 2nd outer iteration
-        # (SALSA_v2.m:453 `if (outer>1)`)
-        newly_done = torch.logical_and(active, crit < tol_t) if k >= 1 else zero.bool()
+            # objective via Parseval: ½‖y − A x‖² + τ TV(u)
+            resid2 = pnorm2(yhat - H * xhat_n)
+            obj = 0.5 * resid2 + tau * tv_norm(un)
+            dist = torch.linalg.norm(xn - un) / torch.sqrt(
+                torch.sum(xn * xn) + torch.sum(un * un))
+            if stop_criterion == 1:
+                crit = torch.abs(obj - prev_obj) / prev_obj
+            elif stop_criterion == 2:
+                crit = torch.linalg.norm(xn - x) / torch.linalg.norm(xn)
+            else:
+                crit = obj
+            # the reference only tests the stop from the 2nd outer iteration
+            # (SALSA_v2.m:453 `if (outer>1)`)
+            newly_done = torch.logical_and(active, crit < tol_t) if k >= 1 else zero.bool()
 
-        x = torch.where(active, xn, x)
-        bu = torch.where(active, bun, bu)
-        pux = torch.where(active, st.px, pux)
-        puy = torch.where(active, st.py, puy)
-        prev_obj = torch.where(active, obj, prev_obj)
-        n_done = n_done + active.to(torch.int32)
-        done = torch.logical_or(done, newly_done)
+            x = torch.where(active, xn, x)
+            bu = torch.where(active, bun, bu)
+            pux = torch.where(active, st.px, pux)
+            puy = torch.where(active, st.py, puy)
+            prev_obj = torch.where(active, obj, prev_obj)
+            n_done = n_done + active.to(torch.int32)
+            done = torch.logical_or(done, newly_done)
 
-        mse = torch.sum((x - x_true) ** 2) / d if compute_mse else zero
-        tr[:, k] = torch.stack([
-            prev_obj,
-            torch.where(active, dist, zero),
-            mse,
-            torch.where(active, crit, zero),
-        ])
-        ran = k + 1
-        if ran % _CHECK_EVERY == 0 and bool(done):
-            break
+            mse = torch.sum((x - x_true) ** 2) / d if compute_mse else zero
+            tr[:, k] = torch.stack([
+                prev_obj,
+                torch.where(active, dist, zero),
+                mse,
+                torch.where(active, crit, zero),
+            ])
+            ran = k + 1
+            if ran % _CHECK_EVERY == 0 and bool(done):
+                break
 
     traces = tr.cpu().numpy()
+    fold_sweeps()
     if ran < max_iter:
         # frozen tail: objective and mse hold, distance and criterion are 0
         traces[0, ran:] = traces[0, ran - 1]

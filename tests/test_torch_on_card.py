@@ -55,7 +55,9 @@ through kernel B and through kernel D (fft_mode='dft'), and the resumed
 run launches no warm-up step; TV-FISTA through A2 agrees with its plain
 route on the card within 1e-5 of the largest magnitude; the posterior
 moments at B=4 are finite, var ≥ 0, and equal the brute-force moments of
-the same run's samples within 1e-5.
+the same run's samples within 1e-5.  With the recorder on
+(runtime/profiling.py), `sweeps.B` counts the sweeps kernel B ran, as the
+plain version counts them, and over a run the sum of its iters tensors.
 
 Per-chain scalars (the problems of a sharded run in one launch): A1, A2,
 B, C, F and G called with one λ (and γ, λθ, σ²) a chain, as (B,) tensors,
@@ -71,6 +73,7 @@ from semiblind_tv_tpu_torch.benchmarks import probe_prox_variants
 from semiblind_tv_tpu_torch.ops import fused_dft_cuda, fused_step_cuda, tv_blocked_cuda, tv_cuda
 from semiblind_tv_tpu_torch.ops.fourier import irfft2_matmul, rdft_matrices, rfft2_matmul
 from semiblind_tv_tpu_torch.ops.rng import philox_normals
+from semiblind_tv_tpu_torch.runtime.profiling import counters
 
 REL = 1e-5
 
@@ -124,9 +127,9 @@ def _resident_call(form, shape, dev, tol, seed=0, scales=None):
             args = (g, torch.tensor(20.0, device=dev), 10, 0.249, tol, duals)
         else:
             args = (g, torch.tensor(0.5, device=dev), 25, 0.249, tol, None, False)
-        before = tv_cuda.LAUNCHES
+        before = counters["launches.A"]
         f, st = tv_cuda.chambolle_prox_cuda(*args)
-        launches = tv_cuda.LAUNCHES - before
+        launches = counters["launches.A"] - before
         pf, pst = tv_cuda.chambolle_prox_plain(*args)
         kernel = (f, st.px, st.py, st.iters, st.err)
         return kernel, (pf, pst.px, pst.py, pst.iters, pst.err), launches
@@ -134,15 +137,15 @@ def _resident_call(form, shape, dev, tol, seed=0, scales=None):
     scal = tuple(torch.tensor(v, device=dev) for v in _STEP_SCALARS)
     if form == "B":
         z = _field(rng, shape, dev)
-        before = fused_step_cuda.LAUNCHES
+        before = counters["launches.B"]
         k = fused_step_cuda.myula_prox_tv(x, prox, grad, z, *scal, 25, tol=tol)
-        launches = fused_step_cuda.LAUNCHES - before
+        launches = counters["launches.B"] - before
         p = fused_step_cuda.myula_prox_tv_plain(x, prox, grad, z, *scal, 25, tol=tol)
     else:
         seeds = _seeds(rng, shape[0], dev)
-        before = fused_step_cuda.RNG_LAUNCHES
+        before = counters["launches.C"]
         k = fused_step_cuda.myula_prox_tv_rng(x, prox, grad, seeds, *scal, 25, tol=tol)
-        launches = fused_step_cuda.RNG_LAUNCHES - before
+        launches = counters["launches.C"] - before
         p = fused_step_cuda.myula_prox_tv_rng_plain(x, prox, grad, seeds, *scal, 25, tol=tol)
     return k, p, launches
 
@@ -254,12 +257,12 @@ def test_resident_wrapper_raises_on_a_refused_launch(cuda_device, monkeypatch):
     C = cap // T + 1
     g = torch.rand((C, 512, 512), device=cuda_device)
     geo = tv_cuda.ResidentGeometry((tv_cuda.TILE_ROWS, tv_cuda.TILE_COLS), T, C, 1, C * T, 1)
-    before = tv_cuda.LAUNCHES
+    before = counters["launches.A"]
     with monkeypatch.context() as m:
         m.setattr(tv_cuda, "resident_geometry", lambda *args: geo)
         with pytest.raises(RuntimeError):
             tv_cuda.chambolle_prox_cuda(g, torch.tensor(0.5, device=cuda_device), 5)
-    assert tv_cuda.LAUNCHES == before
+    assert counters["launches.A"] == before
     f, _ = tv_cuda.chambolle_prox_cuda(g[:1], torch.tensor(0.5, device=cuda_device), 5, tol=0.0)
     pf, _ = tv_cuda.chambolle_prox_plain(g[:1], torch.tensor(0.5, device=cuda_device), 5, tol=0.0)
     assert torch.equal(f, pf) and tv_cuda.barrier_error() == 0
@@ -294,13 +297,13 @@ def test_kernel_b_matches_plain(cuda_device, positivity):
     x, prox, grad = _step_fields(rng, shape, cuda_device)
     z = _field(rng, shape, cuda_device)
     args = tuple(torch.tensor(v, device=cuda_device) for v in _STEP_SCALARS)
-    before = fused_step_cuda.LAUNCHES
+    before = counters["launches.B"]
     k = fused_step_cuda.myula_prox_tv(x, prox, grad, z, *args, 25, tol=0.0,
                                       positivity=positivity)
     p = fused_step_cuda.myula_prox_tv_plain(x, prox, grad, z, *args, 25, tol=0.0,
                                             positivity=positivity)
     torch.cuda.synchronize()
-    assert fused_step_cuda.LAUNCHES == before + 1
+    assert counters["launches.B"] == before + 1
     _assert_resident_matches("B", k, p)
 
 
@@ -312,13 +315,13 @@ def test_blocked_prox_matches_plain(cuda_device, shape, warm):
     duals = (_field(rng, shape, cuda_device, 0.1), _field(rng, shape, cuda_device, 0.1)) \
         if warm else None
     lam = torch.tensor(20.0, device=cuda_device)
-    before = tv_blocked_cuda.LAUNCHES
+    before = counters["launches.blocked_prox"]
     f, st = tv_blocked_cuda.chambolle_prox_blocked(g, lam, 25, tol=0.0, duals=duals,
                                                    return_state=warm)
     pf, pst = tv_blocked_cuda.chambolle_prox_blocked_plain(g, lam, 25, tol=0.0, duals=duals,
                                                            return_state=warm)
     torch.cuda.synchronize()
-    assert tv_blocked_cuda.LAUNCHES == before + 1
+    assert counters["launches.blocked_prox"] == before + 1
     assert _rel_err(f, pf) <= REL
     assert _rel_err(st.px, pst.px) <= REL and _rel_err(st.py, pst.py) <= REL
     assert st.iters.tolist() == pst.iters.tolist() == [25] * shape[0]
@@ -360,13 +363,13 @@ def test_blocked_fused_step_matches_plain(cuda_device, sigma2, positivity):
     grad = _field(rng, shape, cuda_device, 0.01)
     z = _field(rng, shape, cuda_device)
     args = tuple(torch.tensor(v, device=cuda_device) for v in (1.9, 2.0, 0.02, sigma2))
-    before = fused_step_cuda.BLOCKED_LAUNCHES
+    before = counters["launches.blocked_step"]
     k = fused_step_cuda.myula_prox_tv_blocked(x, prox, grad, z, *args, n_sweeps=25, tol=0.0,
                                               positivity=positivity)
     p = fused_step_cuda.myula_prox_tv_blocked_plain(x, prox, grad, z, *args, n_sweeps=25,
                                                     tol=0.0, positivity=positivity)
     torch.cuda.synchronize()
-    assert fused_step_cuda.BLOCKED_LAUNCHES == before + 1
+    assert counters["launches.blocked_step"] == before + 1
     for a, b in zip(k, p):
         assert _rel_err(a, b) <= REL
 
@@ -447,13 +450,13 @@ def test_kernel_c_matches_plain(cuda_device, shape, positivity):
     x, prox, grad = _step_fields(rng, shape, cuda_device)
     seeds = _seeds(rng, shape[0], cuda_device)
     args = tuple(torch.tensor(v, device=cuda_device) for v in _STEP_SCALARS)
-    before = fused_step_cuda.RNG_LAUNCHES
+    before = counters["launches.C"]
     k = fused_step_cuda.myula_prox_tv_rng(x, prox, grad, seeds, *args, 25, tol=0.0,
                                           positivity=positivity)
     p = fused_step_cuda.myula_prox_tv_rng_plain(x, prox, grad, seeds, *args, 25, tol=0.0,
                                                 positivity=positivity)
     torch.cuda.synchronize()
-    assert fused_step_cuda.RNG_LAUNCHES == before + 1
+    assert counters["launches.C"] == before + 1
     _assert_resident_matches("C", k, p)
     # x = prox = grad = 0, γ = 0.5, no positivity: xn is the raw noise field
     zero = torch.zeros_like(x)
@@ -471,13 +474,13 @@ def test_blocked_seeds_form_matches_plain(cuda_device, sigma2, positivity):
     grad = _field(rng, shape, cuda_device, 0.01)
     seeds = _seeds(rng, 2, cuda_device)
     args = tuple(torch.tensor(v, device=cuda_device) for v in (1.9, 2.0, 0.02, sigma2))
-    before = fused_step_cuda.BLOCKED_SEEDS_LAUNCHES
+    before = counters["launches.blocked_step.seeds"]
     k = fused_step_cuda.myula_prox_tv_blocked(x, prox, grad, None, *args, n_sweeps=25,
                                               tol=0.0, positivity=positivity, seeds=seeds)
     p = fused_step_cuda.myula_prox_tv_blocked_plain(x, prox, grad, None, *args, n_sweeps=25,
                                                     tol=0.0, positivity=positivity, seeds=seeds)
     torch.cuda.synchronize()
-    assert fused_step_cuda.BLOCKED_SEEDS_LAUNCHES == before + 1
+    assert counters["launches.blocked_step.seeds"] == before + 1
     for a, b in zip(k, p):
         assert _rel_err(a, b) <= REL
 
@@ -494,19 +497,18 @@ def test_dft_kernels_match_plain(cuda_device, shape, kernel):
     mats = rdft_matrices((M, N), torch.float32, cuda_device)
     mats64 = rdft_matrices((M, N), torch.float64, cuda_device)
     args = tuple(torch.tensor(v, device=cuda_device) for v in (1.9, 2.0, 0.02, 2.5))
-    fn, plain, counter = {
-        "D": (fused_dft_cuda.myula_prox_tv_dft, fused_dft_cuda.myula_prox_tv_dft_plain,
-              "DFT_LAUNCHES"),
-        "E": (fused_dft_cuda.myula_prox_tv_irdft, fused_dft_cuda.myula_prox_tv_irdft_plain,
-              "IRDFT_LAUNCHES"),
+    fn, plain = {
+        "D": (fused_dft_cuda.myula_prox_tv_dft, fused_dft_cuda.myula_prox_tv_dft_plain),
+        "E": (fused_dft_cuda.myula_prox_tv_irdft, fused_dft_cuda.myula_prox_tv_irdft_plain),
     }[kernel]
-    before = getattr(fused_dft_cuda, counter)
+    counter = "launches." + kernel
+    before = counters[counter]
     k = fn(ghat, x, prox, z, mats, *args, tol=0.0)
     p = plain(ghat, x, prox, z, mats, *args, tol=0.0)
     p64 = plain(ghat.to(torch.complex128), x.double(), prox.double(), z.double(), mats64,
                 *(a.double() for a in args), tol=0.0)
     torch.cuda.synchronize()
-    assert getattr(fused_dft_cuda, counter) == before + 1
+    assert counters[counter] == before + 1
     for i in (0, 1, 3)[:len(k) - 1]:   # xn, proxn, x̂
         a, b, c = (t if not t.is_complex() else torch.view_as_real(t) for t in (k[i], p[i], p64[i]))
         assert _rel_err(a, b) <= REL
@@ -534,10 +536,10 @@ def test_dft_gemm_products_match_torch_matmul(cuda_device, shape):
     ghat = torch.fft.rfft2(_field(rng, shape, cuda_device)).contiguous()
     mats = rdft_matrices((M, N), torch.float32, cuda_device)
     mats64 = rdft_matrices((M, N), torch.float64, cuda_device)
-    before = fused_dft_cuda.PRODUCTS_LAUNCHES
+    before = counters["launches.dft_products"]
     grad, xhat, scratch = fused_dft_cuda.dft_products(ghat, x, mats, return_scratch=True)
     torch.cuda.synchronize()
-    assert fused_dft_cuda.PRODUCTS_LAUNCHES == before + 1
+    assert counters["launches.dft_products"] == before + 1
     real = lambda t: torch.view_as_real(t) if t.is_complex() else t  # noqa: E731
     ref32 = (irfft2_matmul(ghat, mats), rfft2_matmul(x, mats))
     ref64 = (irfft2_matmul(ghat.to(torch.complex128), mats64), rfft2_matmul(x.double(), mats64))
@@ -569,11 +571,11 @@ def test_prox_variant_matches_plain(cuda_device, mode):
     g = torch.from_numpy(g).to(cuda_device)
     for lam, tol in ((0.08, 0.0), (20.0, 8.0)):
         scal = torch.tensor([lam, 0.249, tol], device=cuda_device)
-        before = pv.LAUNCHES
+        before = counters["launches.J"]
         f, meta = pv.prox_variant(mode, g, scal, 25)
         pf, pmeta = pv.prox_variant_plain(mode, g, scal, 25)
         torch.cuda.synchronize()
-        assert pv.LAUNCHES == before + 1
+        assert counters["launches.J"] == before + 1
         assert torch.equal(f, pf), float((f - pf).abs().max())
         assert torch.equal(meta[:, 0], pmeta[:, 0])
         if tol and mode not in pv.NO_RESIDUAL:
@@ -659,7 +661,7 @@ def test_resume_equals_uninterrupted_run_on_the_card(cuda_device, tmp_path, fft_
         return torch.Generator(device=cuda_device).manual_seed(2)
 
     def launches():
-        return (fused_step_cuda.LAUNCHES if row == "B" else fused_dft_cuda.DFT_LAUNCHES)
+        return (counters["launches.B"] if row == "B" else counters["launches.D"])
 
     full = run_sapg(problem, gen())
     ckpt = str(tmp_path / "sapg.npz")
@@ -687,9 +689,9 @@ def test_fista_through_a2_matches_the_plain_route_on_the_card(cuda_device):
 
     problem = _card_run_problem(cuda_device, samples=2, warmup=1)
     kw = dict(tau=0.05 * float(problem.sigma_true) ** 2, blur=problem.blur, max_iter=40, tol=0.0)
-    before = tv_cuda.FRESH_LAUNCHES
+    before = counters["launches.A.fresh"]
     kern = fista_tv(problem.y, problem.H_true, **kw)
-    assert tv_cuda.FRESH_LAUNCHES - before == 40
+    assert counters["launches.A.fresh"] - before == 40
     plain = fista_tv(problem.y, problem.H_true, prox_route="plain", **kw)
     assert kern.n_iters == plain.n_iters == 40
     scale = np.abs(plain.x).max()
@@ -717,6 +719,53 @@ def test_posterior_moments_on_the_card(cuda_device):
     scale = np.abs(xs).max()
     assert np.abs(res.posterior_mean - xs.mean(0)).max() <= 1e-5 * scale
     assert np.abs(res.posterior_var - xs.var(0, ddof=1)).max() <= 1e-5 * scale ** 2
+
+
+def test_sweep_counter_is_kernel_b_sweeps(cuda_device, monkeypatch):
+    """With the recorder on, a call's `sweeps.B` equals the plain version's
+    sweep counts on the same inputs (tol 1e-3, chains scaled apart), and
+    after a run `sweeps.B` is the sum of every iters tensor kernel B wrote in
+    it, each copied when written (the kept tensors are not overwritten
+    before the fold), with `chain_calls.B` its chains."""
+    from semiblind_tv_tpu_torch.runtime import profiling
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
+
+    rng = np.random.default_rng(12)
+    shape = (3, 64, 64)
+    sc = torch.tensor([1e-5, 1e-3, 1.0], device=cuda_device)[:, None, None]
+    x, prox, grad = (v * sc for v in _step_fields(rng, shape, cuda_device))
+    z = _field(rng, shape, cuda_device) * sc
+    scal = tuple(torch.tensor(v, device=cuda_device) for v in _STEP_SCALARS)
+    profiling.reset()
+    profiling.enable(in_sessions=False)
+    try:
+        counts = []
+        for fn in (fused_step_cuda.myula_prox_tv, fused_step_cuda.myula_prox_tv_plain):
+            profiling.reset()
+            fn(x, prox, grad, z, *scal, 25, tol=1e-3)
+            profiling.fold_sweeps()
+            counts.append((counters["sweeps.B"], counters["chain_calls.B"]))
+        assert counts[0] == counts[1] and counts[0][1] == 3 and 3 <= counts[0][0] <= 75
+
+        written = []
+        real = profiling.count_sweeps
+
+        def spy(kernel, iters):
+            if kernel == "B":
+                written.append(iters.clone())
+            real(kernel, iters)
+
+        monkeypatch.setattr(profiling, "count_sweeps", spy)
+        problem = _card_run_problem(cuda_device, samples=30, warmup=10, burn_in=24)
+        profiling.reset()
+        launched = counters["launches.B"]
+        run_sapg(problem, torch.Generator(device=cuda_device).manual_seed(3), n_chains=2)
+        assert counters["launches.B"] - launched == len(written) == 9 + 29
+        assert counters["sweeps.B"] == int(torch.cat(written).sum())
+        assert counters["chain_calls.B"] == 2 * len(written)
+    finally:
+        profiling.disable()
+        profiling.reset()
 
 
 # ---------------------------------------------------------------------------

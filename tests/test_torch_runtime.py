@@ -5,10 +5,11 @@ runtime/tensorboard.py) and the CLI's results files and plots.
 * `power_iteration` from JAX's normalised start: the same iteration count
   and λ within 1e-10 relative (float64), and within 1e-4 of the closed
   form, as tests/test_lipschitz.py holds JAX;
-* StepTimer, CallCounter and MetricsLogger as tests/test_profiling.py
-  checks them; the tfevents writer byte for byte against the JAX
-  package's and through the real TensorBoard reader, as
-  tests/test_tensorboard.py does; `trace` writes a Chrome trace;
+* CallCounter and MetricsLogger as tests/test_profiling.py checks them
+  (the spans and counters: tests/test_torch_spans.py); the tfevents
+  writer byte for byte against the JAX package's and through the real
+  TensorBoard reader, as tests/test_tensorboard.py does; `trace` writes a
+  Chrome trace;
 * the CLI's `--out` writes traces.npz, and `--plots` the reference's PNG
   set (skipped only where matplotlib is absent).
 """
@@ -66,17 +67,6 @@ def test_power_iteration_from_a_generator_and_its_stop_rules():
     _, capped = tlip.power_iteration(AtA, torch.Generator().manual_seed(3), (32, 32), tol=1e-7,
                                      max_iter=5, dtype=torch.float64)
     assert capped == 5 < iters
-
-
-def test_step_timer():
-    t = profiling.StepTimer()
-    for _ in range(3):
-        t.timed(lambda: torch.sum(torch.ones((64, 64))))
-    with t.time(result_holder={"a": [torch.ones(2)]}):
-        torch.ones(3)
-    s = t.summary()
-    assert s["count"] == 4 and s["total_s"] > 0 and s["p50_s"] <= s["p95_s"]
-    assert profiling.StepTimer().summary() == {}
 
 
 def test_call_counter():

@@ -30,10 +30,10 @@ import pytest
 import torch
 
 from semiblind_tv_tpu_torch.ops import psf as tpsf
-from semiblind_tv_tpu_torch.ops import tv_cuda
 from semiblind_tv_tpu_torch.ops.fourier import BlurOperator
 from semiblind_tv_tpu_torch.ops.tv import chambolle_prox, forward_gradient_adjoint, tv_norm
 from semiblind_tv_tpu_torch.ops.wavelet import ti_analysis, ti_synthesis
+from semiblind_tv_tpu_torch.runtime.profiling import counters
 from semiblind_tv_tpu_torch.solvers import coral as t_coral_fn
 from semiblind_tv_tpu_torch.solvers.coral import coral_tv_l1
 from semiblind_tv_tpu_torch.solvers.csalsa import csalsa, csalsa_synthesis, csalsa_tv
@@ -539,9 +539,9 @@ def _card_problem(dev, size=64, seed=26):
 def test_card_csalsa_tv_through_a1_equals_the_plain_route(cuda_device):
     blur, H, y = _card_problem(cuda_device)
     kw = dict(mu1=0.05, mu2=1.0, blur=blur, sigma=1.0, max_iter=60, tol=0.0, chambolle_tol=0.0)
-    tv_cuda.LAUNCHES = tv_cuda.FRESH_LAUNCHES = 0
+    counters.reset("launches.A", "launches.A.fresh")
     kern = csalsa_tv(y, H, **kw)
-    assert tv_cuda.LAUNCHES == 60 and tv_cuda.FRESH_LAUNCHES == 0
+    assert counters["launches.A"] == 60 and counters["launches.A.fresh"] == 0
     plain = csalsa_tv(y, H, prox_route="plain", **kw)
     assert _rel(kern.x, plain.x) <= 1e-6
 
@@ -550,9 +550,9 @@ def test_card_csalsa_tv_through_a1_equals_the_plain_route(cuda_device):
 def test_card_coral_tv_l1_through_a1_a2_equals_the_plain_route(cuda_device, warm):
     blur, H, y = _card_problem(cuda_device)
     kw = dict(mu1=0.03, mu2=0.03, max_iter=60, tol=0.0, chambolle_tol=0.0, tv_warm_start=warm)
-    tv_cuda.LAUNCHES = tv_cuda.FRESH_LAUNCHES = 0
+    counters.reset("launches.A", "launches.A.fresh")
     kern = coral_tv_l1(y, H, 0.3, 0.01, blur, **kw)
-    assert tv_cuda.LAUNCHES == 60 and tv_cuda.FRESH_LAUNCHES == (0 if warm else 60)
+    assert counters["launches.A"] == 60 and counters["launches.A.fresh"] == (0 if warm else 60)
     plain = coral_tv_l1(y, H, 0.3, 0.01, blur, prox_route="plain", **kw)
     assert _rel(kern.x, plain.x) <= 1e-6
 
