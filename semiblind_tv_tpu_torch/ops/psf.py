@@ -56,7 +56,10 @@ def psf_grid(size: int, dtype=torch.float32, device=None):
 def _gaussian_unnormalised(size, w1, w2, phi, dtype, device):
     device, (w1, w2) = _params(dtype, device, w1, w2)
     v, u = psf_grid(size, dtype, device)
-    phi_t = torch.as_tensor(phi, dtype=dtype, device=device)
+    # a fill, not a host-to-device copy: the SAPG step runs this every
+    # iteration, and a CUDA graph cannot capture such a copy
+    phi_t = (phi.to(dtype=dtype, device=device) if torch.is_tensor(phi)
+             else torch.full((), phi, dtype=dtype, device=device))
     cphi, sphi = torch.cos(phi_t), torch.sin(phi_t)
     U = u * cphi - v * sphi
     V = u * sphi + v * cphi

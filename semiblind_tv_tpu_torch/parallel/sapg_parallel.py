@@ -56,7 +56,7 @@ from semiblind_tv_tpu_torch.runtime.checkpoint import (
     save_checkpoint_arrays,
 )
 from semiblind_tv_tpu_torch.runtime.problem import Problem
-from semiblind_tv_tpu_torch.runtime.profiling import fold_sweeps, span
+from semiblind_tv_tpu_torch.runtime.profiling import counters, fold_sweeps, span
 from semiblind_tv_tpu_torch.sapg.estimator import (
     SAPGResult,
     _host,
@@ -157,6 +157,7 @@ def build_sharded_sapg(
                 with span("sapg.warm_step"):
                     with span("sapg.noise"):
                         Z = draw()
+                    counters.add("graph.eager_steps")
                     carry, logpi = aux["warm_step"](carry, consts, Z)
                     with span("sapg.trace"):
                         logpi_wu[t] = logpi
@@ -179,6 +180,7 @@ def build_sharded_sapg(
                 with span("sapg.step"):
                     with span("sapg.noise"):
                         Z = draw()
+                    counters.add("graph.eager_steps")
                     carry, tr = step(carry, ii, consts, Z)
                     with span("sapg.trace"):
                         if buf is None:

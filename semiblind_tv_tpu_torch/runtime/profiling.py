@@ -34,7 +34,13 @@ SALSA/callcounter.m:8-16).  Here:
                         calls' chains to `chain_calls.<kernel>` and keeps the
                         device tensor (no launch, no sync); `fold_sweeps()`
                         adds the kept counts to `sweeps.<kernel>`, once a run,
-                        after its synchronize.
+                        after its synchronize.  Inside a CUDA graph's capture
+                        (`capturing()`) the launch counts and the sweep-count
+                        tensors are collected instead, and each replay
+                        reports them (`replayed()`).  The SAPG run counts
+                        `graph.captures`, `graph.replays` and
+                        `graph.eager_steps` (iterations run without a
+                        replay), always on.
   * `trace(dir)`      — a torch.profiler region (CPU, and the card's kernels
                         when CUDA is available) whose Chrome trace is written
                         to `dir/trace.json` (view in Perfetto or
@@ -58,8 +64,8 @@ from typing import Any, Dict, Optional
 import torch
 
 __all__ = ["span", "counters", "Counters", "enable", "disable", "enabled", "reset", "snapshot",
-           "export", "count_sweeps", "fold_sweeps", "trace", "CallCounter", "MetricsLogger",
-           "TRACE_FILE", "MAX_SPANS"]
+           "export", "count_sweeps", "fold_sweeps", "capturing", "replayed", "trace",
+           "CallCounter", "MetricsLogger", "TRACE_FILE", "MAX_SPANS"]
 
 TRACE_FILE = "trace.json"
 MAX_SPANS = 1 << 18     # spans kept in full; later ones only in their name's totals
@@ -103,6 +109,7 @@ class _Recorder:
         self.records = []      # (name, id, parent, start_ns, end_ns, child_ns, profiled)
         self.dropped = {}      # name -> [count, total_ns, self_ns] past MAX_SPANS
         self.kept_sweeps = []  # (kernel, device int32 tensor of sweep counts)
+        self.capture = None    # the _Captured of a CUDA graph capture under way
         self.open = None       # the innermost open span
         self.next_id = 0
 
@@ -223,6 +230,9 @@ def count_sweeps(kernel: str, iters: torch.Tensor) -> None:
     version) `kernel`: nothing while the recorder is off.  A CPU tensor is
     added to `sweeps.<kernel>` at once; a device tensor is kept, unread,
     until fold_sweeps()."""
+    if _REC.capture is not None:
+        _REC.capture.sweeps.append((kernel, iters))
+        return
     if not _REC.on or (not _REC.in_sessions and _profiler_enabled()):
         return
     counters.add("chain_calls." + kernel, iters.numel())
@@ -232,6 +242,48 @@ def count_sweeps(kernel: str, iters: torch.Tensor) -> None:
     _REC.kept_sweeps.append((kernel, iters if iters.ndim == 1 else iters.reshape(-1)))
     if len(_REC.kept_sweeps) >= MAX_KEPT_SWEEPS:
         fold_sweeps()
+
+
+class _Captured:
+    """What the kernel wrappers reported while a CUDA graph was captured:
+    `launches`, {counter: launches} taken back out of `counters` (a capture
+    runs nothing), and `sweeps`, the (kernel, sweep-count tensor) pairs, the
+    tensors being the graph's own, which each replay rewrites."""
+
+    def __init__(self):
+        self.launches = {}
+        self.sweeps = []
+
+
+@contextlib.contextmanager
+def capturing():
+    """The region of a CUDA graph capture: yields a _Captured that collects
+    the wrappers' launch counts and sweep-count tensors reported inside it,
+    which leave `counters` and the recorder as they were.  Hand it to
+    replayed() after each replay of the graph."""
+    cap = _Captured()
+    before = counters.snapshot()
+    outer, _REC.capture = _REC.capture, cap
+    try:
+        yield cap
+    finally:
+        _REC.capture = outer
+        for name, n in counters.snapshot().items():
+            if name.startswith("launches.") and n != before.get(name, 0):
+                cap.launches[name] = n - before.get(name, 0)
+                counters.add(name, -cap.launches[name])
+
+
+def replayed(cap: "_Captured") -> None:
+    """Report one replay of a captured graph: its launches to `counters`,
+    and, while the recorder counts sweeps, a copy of each sweep-count
+    tensor it wrote to count_sweeps (one device copy each; the next replay
+    overwrites the graph's own)."""
+    for name, n in cap.launches.items():
+        counters.add(name, n)
+    if cap.sweeps and _REC.on and (_REC.in_sessions or not _profiler_enabled()):
+        for kernel, iters in cap.sweeps:
+            count_sweeps(kernel, iters.clone())
 
 
 def fold_sweeps() -> None:

@@ -65,7 +65,23 @@ copies and assemble_result); each main iteration is a `sapg.step` with the
 children `sapg.noise`, `psf.otf` (a free PSF parameter only),
 `sapg.residual` (Ĝ = conj(H)·(H·X̂ − ŷ) and λθ), `fourier.irfft`,
 `kernel.step`, `fourier.rfft`, `sapg.stats`, `sapg.update` and
-`sapg.trace`, and a warm step has those that apply.
+`sapg.trace`, and a warm step has those that apply.  A replayed iteration
+(below) enters only `sapg.step` (or `sapg.warm_step`) and `sapg.noise`:
+its other spans were entered when the graph was captured, under
+`sapg.capture`.
+
+CUDA graphs: where resolve_graph_replay holds (a CUDA device, route 'B'
+with kernel B, fft_mode 'fft', a noise field, no mesh, no posterior
+moments), run_sapg replays each warm-up iteration and each SAPG iteration
+as one CUDA graph captured from the same step (_GraphLoop), kept in
+problem.step_graphs and reused by the problem's next runs; the host then
+only draws the noise, copies it into the graph's input and replays.  The
+step holds no host scalar for this: the SA updates read their step
+coefficients from a device table (sa_step_coefficients), and the traces
+are stored at a device index the graph advances.  Every other case runs
+the same step eagerly.  The counters `graph.captures`, `graph.replays`
+and `graph.eager_steps` (iterations run without a replay) say how often
+it engages.
 
 The noise source is injectable: `noise(shape) -> (B, M, N) tensor` is
 called once per warm-up and main step, in that order; the default draws
@@ -97,7 +113,8 @@ from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_p
 from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain, per_chain
 from semiblind_tv_tpu_torch.runtime.checkpoint import load_checkpoint_arrays, save_checkpoint_arrays
 from semiblind_tv_tpu_torch.runtime.problem import Problem
-from semiblind_tv_tpu_torch.runtime.profiling import fold_sweeps, span
+from semiblind_tv_tpu_torch.runtime import profiling
+from semiblind_tv_tpu_torch.runtime.profiling import counters, fold_sweeps, span
 from semiblind_tv_tpu_torch.samplers.myula import myula_kernel_step
 
 __all__ = [
@@ -116,6 +133,8 @@ __all__ = [
     "FRESH_PROX",
     "resolve_fuse_dft",
     "resolve_in_kernel_rng",
+    "resolve_graph_replay",
+    "sa_step_coefficients",
 ]
 
 
@@ -252,6 +271,60 @@ def resolve_in_kernel_rng(sapg, route: str, fft_mode: str, shape, B: int) -> boo
     )
 
 
+def resolve_graph_replay(sapg, route: str, fft_mode: str, device, shape, B: int,
+                         mesh=None) -> bool:
+    """Whether run_sapg replays its warm-up and SAPG iterations as CUDA
+    graphs: on a CUDA device, on route 'B' with the fused step (kernel B),
+    fft_mode 'fft', a noise field (not the in-kernel noise's seeds), no
+    mesh and no posterior moments (Welford's update branches on the host's
+    ii).  Everywhere else the same step runs eagerly.  Launches nothing."""
+    return bool(
+        torch.device(device).type == "cuda"
+        and mesh is None
+        and route == "B"
+        and sapg.use_fused_step is not False
+        and fft_mode == "fft"
+        and not resolve_in_kernel_rng(sapg, route, fft_mode, shape, B)
+        and not sapg.track_posterior_moments
+    )
+
+
+def sa_step_coefficients(cfg, dim: int) -> np.ndarray:
+    """The SA updates' step coefficients, float64, one column an iteration
+    ii = 0..samples (columns 0 and 1 unused, zero): row 0 θ's
+    step_scale·δ(ii), row 1 σ²'s sigma_step_scale·δ(ii), then
+    sign·step_scale·δ(ii) of each free PSF parameter in order, with
+    δ(ii) = d_scale·ii^(−d_exp)/dim (SAPG_algorithm_Guassian.m:55).  Each
+    is formed as Python floats in the order of the update's scalar
+    expression, so its cast to the run's dtype times a statistic rounds as
+    that expression times the statistic does."""
+    sapg = cfg.sapg
+    d_scale = sapg.d_scale if sapg.d_scale is not None else 0.01 / cfg.theta.init
+    scales = [cfg.theta.step_scale, cfg.sigma_step_scale] + [
+        s.sign * s.step_scale for s in cfg.psf_params if not s.fix]
+    cols = [[0.0] * len(scales)] * 2
+    for ii in range(2, sapg.samples + 1):
+        delta_i = d_scale * float(ii) ** (-sapg.d_exp) / dim
+        cols.append([c * delta_i for c in scales])
+    return np.array(cols, dtype=np.float64).T.copy()
+
+
+def _coefficients(table: torch.Tensor, ii):
+    """Column ii of the coefficient table: a view for a host int, a gather
+    for a device index (a (1,) int64 tensor, which a CUDA graph advances)."""
+    if isinstance(ii, int):
+        return table[:, ii]
+    return table.index_select(1, ii)[:, 0]
+
+
+def _store(buf: torch.Tensor, i, value: torch.Tensor) -> None:
+    """buf[..., i] = value, for a host int i or a device index."""
+    if isinstance(i, int):
+        buf[..., i] = value
+    else:
+        buf.index_copy_(buf.ndim - 1, i, value.unsqueeze(-1))
+
+
 def _check_ported(cfg) -> None:
     sapg = cfg.sapg
     if sapg.fft_mode not in (None, "fft", "dft"):
@@ -277,7 +350,11 @@ def make_general_sapg_step(
     carry = (X, Xhat, prox, theta, sigma2, params) with, under
     track_posterior_moments, a seventh entry extra = dict(pm_mean, pm_m2,
     pm_count); the step returns (carry, trace) with trace a dict of 0-d
-    device tensors.  `route` overrides resolve_step_route ('plain', 'B',
+    device tensors.  ii is the iteration, a host int or, without the
+    posterior moments, a (1,) int64 device tensor: the SA updates read
+    their step coefficients (sa_step_coefficients) from a device table at
+    column ii, so the step holds no host scalar and a CUDA graph can
+    capture it.  `route` overrides resolve_step_route ('plain', 'B',
     'G' or 'I'); with 'plain'
     the prox takes its plain version too — the chip smoke test compares the
     kernels with the plain versions on the card this way.
@@ -354,13 +431,15 @@ def make_general_sapg_step(
     theta_spec = cfg.theta
     psf_specs = cfg.psf_params
     psf_names = tuple(s.name for s in psf_specs)
-    d_scale = sapg.d_scale if sapg.d_scale is not None else 0.01 / theta_spec.init
 
     # only non-fixed params need OTF gradients; with every PSF param pinned
     # (the published Gaussian config, run_Gaussian_demo.m:42-43) the OTF is
     # a loop constant and is hoisted out of the loop (H0 below)
     free_names = tuple(s.name for s in psf_specs if not s.fix)
     all_fixed = not free_names
+    # the SA updates' step coefficients over ii, rows as sa_step_coefficients
+    coef_table = torch.from_numpy(sa_step_coefficients(cfg, d)).to(dtype).to(device)
+    coef_row = {n: 2 + j for j, n in enumerate(free_names)}
 
     def otfs(params):
         k, dks = model.kernel_and_grads(params)
@@ -520,17 +599,14 @@ def make_general_sapg_step(
         G_t, G_s = stats["G_t"], stats["G_s"]
         G_p = {n: stats[f"G_{n}"] for n in free_names}
 
-        delta_i = d_scale * float(ii) ** (-sapg.d_exp) / d
+        coef = _coefficients(coef_table, ii)
         if sapg.theta_log_scale:
             # Algorithm-1: eta = log θ, eta += δ·G_θ·θ, clipped in eta-space
             # (SALSA/SAPG_algorithm_1.m:180-182)
-            eta_n = torch.clamp(
-                torch.log(theta) + theta_spec.step_scale * delta_i * G_t * theta,
-                *log_theta_box,
-            )
+            eta_n = torch.clamp(torch.log(theta) + coef[0] * G_t * theta, *log_theta_box)
             theta_n = torch.exp(eta_n)
         else:
-            theta_n = theta_spec.clip(theta + theta_spec.step_scale * delta_i * G_t)
+            theta_n = theta_spec.clip(theta + coef[0] * G_t)
         params_n = {}
         for s in psf_specs:
             if s.fix:
@@ -540,14 +616,11 @@ def make_general_sapg_step(
                 # log-space update with the chain-rule factor p, clipped in
                 # log space (an extension of the JAX package, opt-in)
                 p = params[s.name]
-                lp_n = torch.clamp(
-                    torch.log(p) + s.sign * s.step_scale * delta_i * G_p[s.name] * p,
-                    *log_box[s.name],
-                )
+                lp_n = torch.clamp(torch.log(p) + coef[coef_row[s.name]] * G_p[s.name] * p,
+                                   *log_box[s.name])
                 params_n[s.name] = torch.exp(lp_n)
             else:
-                cand = params[s.name] + s.sign * s.step_scale * delta_i * G_p[s.name]
-                params_n[s.name] = s.clip(cand)
+                params_n[s.name] = s.clip(params[s.name] + coef[coef_row[s.name]] * G_p[s.name])
         if sigma_fix:
             sigma_n = consts["sigma2_init"]
         elif sapg.sigma_log_scale:
@@ -555,15 +628,12 @@ def make_general_sapg_step(
             # extension of the JAX package, opt-in: it moves far faster from
             # the wide BSNR-midpoint init at large d)
             lsig_n = torch.clamp(
-                torch.log(sigma2) + cfg.sigma_step_scale * delta_i * G_s * sigma2,
+                torch.log(sigma2) + coef[1] * G_s * sigma2,
                 torch.log(consts["sigma2_lo"]), torch.log(consts["sigma2_hi"]),
             )
             sigma_n = torch.exp(lsig_n)
         else:
-            sigma_n = torch.clamp(
-                sigma2 + cfg.sigma_step_scale * delta_i * G_s,
-                consts["sigma2_lo"], consts["sigma2_hi"],
-            )
+            sigma_n = torch.clamp(sigma2 + coef[1] * G_s, consts["sigma2_lo"], consts["sigma2_hi"])
 
         trace = dict(
             theta=theta_n,
@@ -914,6 +984,7 @@ def run_sapg(
     checkpoint_backend: str = "npz",
     fault_hook=None,
     max_restores: int = 1,
+    _graphs: bool = True,
 ) -> SAPGResult:
     """Run warm-up + SAPG on the problem's device and assemble the full
     diagnostics bundle.
@@ -947,7 +1018,10 @@ def run_sapg(
     through torch.distributed.checkpoint, runtime/checkpoint.py).
     nan_guard/max_restores/fault_hook: fail-fast divergence supervision —
     see run_segmented_scan; fault_hook(seg_idx, carry) -> carry gets the
-    carry (X, Xhat, prox, θ, σ², params[, extra])."""
+    carry (X, Xhat, prox, θ, σ², params[, extra]); where the iterations
+    replay as CUDA graphs (module docstring) that carry is the graphs'
+    buffers, valid until the next iteration.  _graphs=False runs the step
+    eagerly where the graphs would engage (for tests)."""
     if mesh is not None:
         from semiblind_tv_tpu_torch.parallel.mesh import CHAINS_AXIS, axis_size
         from semiblind_tv_tpu_torch.parallel.sapg_parallel import run_sapg_sharded
@@ -965,11 +1039,193 @@ def run_sapg(
     with span("sapg.run"):
         return _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
                          checkpoint_every, checkpoint_path, checkpoint_backend, fault_hook,
-                         max_restores)
+                         max_restores, _graphs)
+
+
+class _Loop:
+    """A run's iterations on one device, eagerly.  warm(carry, t, Z) and
+    main(carry, ii, Z) run a warm-up and a SAPG iteration, each storing its
+    trace on the device: logπ at slot t of `logpi_wu`, the step's trace
+    at column ii of `buf` (rows `names`), read back a segment at a time
+    (traces).  warm_iter and main_iter are the iterations themselves, with
+    t and ii host ints or device indices (_GraphLoop captures them)."""
+
+    def __init__(self, problem: Problem, n_chains: int, route: Optional[str]):
+        sapg = problem.cfg.sapg
+        self.step, self.aux = make_sapg_step(problem, n_chains, route=route)
+        blur = problem.blur
+        self.dtype, self.device = blur.dtype, problem.device
+        self.shape = (n_chains,) + tuple(blur.shape)
+        self.n_cols = sapg.samples + 1
+        self.logpi_wu = torch.empty((max(sapg.warmup - 1, 0),), dtype=self.dtype,
+                                    device=self.device)
+        self.names = self.buf = None
+
+    def begin(self) -> None:
+        """Called as a run starts."""
+
+    def warm_iter(self, carry, t, Z):
+        carry, logpi = self.aux["warm_step"](carry, self.aux["consts"], Z)
+        with span("sapg.trace"):
+            _store(self.logpi_wu, t, logpi)
+        return carry
+
+    def main_iter(self, carry, ii, Z):
+        carry, tr = self.step(carry, ii, Z)
+        with span("sapg.trace"):
+            if self.buf is None:
+                self.names = list(tr)
+                self.buf = torch.empty((len(self.names), self.n_cols), dtype=self.dtype,
+                                       device=self.device)
+            _store(self.buf, ii, torch.stack([tr[n] for n in self.names]))
+        return carry
+
+    def warm(self, carry, t: int, Z):
+        counters.add("graph.eager_steps")
+        return self.warm_iter(carry, t, Z)
+
+    def main(self, carry, ii: int, Z):
+        counters.add("graph.eager_steps")
+        return self.main_iter(carry, ii, Z)
+
+    def traces(self, iis: range) -> Dict[str, np.ndarray]:
+        """The host copy of the traces of iterations iis (one read)."""
+        if not len(iis):
+            return {}
+        host = self.buf[:, iis.start:iis.stop].cpu().numpy()
+        return {n: host[i] for i, n in enumerate(self.names)}
+
+
+class _GraphLoop(_Loop):
+    """The iterations of run_sapg on one card as two CUDA graphs, one of a
+    warm-up iteration and one of a SAPG iteration, captured once for the
+    problem, the chain count and the route (run_sapg keeps the loop in
+    problem.step_graphs) and replayed by the runs that follow.
+
+    The graphs read and write static buffers: the carry (X, X̂, prox, and θ,
+    σ² and the PSF parameters as views of one vector), the noise field Z
+    and a device index each, which the graph advances.  A replay copies
+    the new carry into the carry buffers as its last operations, so
+    replays chain with no host work but the draw: the host calls the noise
+    source, copies its field into Z and replays.  A carry handed in (the
+    run's initial state, a checkpoint restored, fault_hook's) is copied
+    into the buffers first; the carry handed out is the buffers, which the
+    next replay overwrites.
+
+    A kind's first iteration runs eagerly on the capture stream (the
+    cuFFT plans, the cuBLAS workspace and the resident kernel's workspace
+    for that stream are made there), then the graph is captured from the
+    same function, under the `sapg.capture` span.  The wrappers' launch
+    counts and sweep-count tensors reported during the capture are handed
+    to the counters and the recorder once a replay (profiling.capturing,
+    profiling.replayed)."""
+
+    def __init__(self, problem: Problem, n_chains: int, route: Optional[str]):
+        super().__init__(problem, n_chains, route)
+        dev, dtype = self.device, self.dtype
+        self.stream = torch.cuda.Stream(dev)
+        X = torch.empty(self.shape, dtype=dtype, device=dev)
+        Xhat = torch.empty(self.shape[:-1] + (self.shape[-1] // 2 + 1,),
+                           dtype=problem.blur.cdtype, device=dev)
+        prox = torch.empty_like(X)
+        self.param_names = list(self.aux["params0"])
+        self.scal = torch.empty((2 + len(self.param_names),), dtype=dtype, device=dev)
+        self.static = {
+            "warm": (X, Xhat, prox),
+            "main": (X, Xhat, prox, self.scal[0], self.scal[1],
+                     {n: self.scal[2 + i] for i, n in enumerate(self.param_names)}),
+        }
+        self.Z = torch.empty_like(X)
+        self.index = {k: torch.zeros((1,), dtype=torch.int64, device=dev) for k in self.static}
+        self.fns = {"warm": self.warm_iter, "main": self.main_iter}
+        self.graphs = {}
+        self.next = {}
+
+    def _pairs(self, kind, carry):
+        """(buffer, value) of each tensor of a carry."""
+        static = self.static[kind]
+        pairs = list(zip(static[:5], carry[:5]))
+        if kind == "main":
+            pairs += [(static[5][n], carry[5][n]) for n in self.param_names]
+        return pairs
+
+    def begin(self) -> None:
+        self.next = {}
+
+    def warm(self, carry, t: int, Z):
+        return self._iterate("warm", carry, t, Z)
+
+    def main(self, carry, ii: int, Z):
+        return self._iterate("main", carry, ii, Z)
+
+    def _iterate(self, kind, carry, i, Z):
+        if kind not in self.graphs:
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                carry = self.fns[kind](carry, i, Z)
+            cur.wait_stream(self.stream)
+            counters.add("graph.eager_steps")
+            self._capture(kind)
+            return carry
+        for buf, value in self._pairs(kind, carry):
+            if value is not buf:
+                buf.copy_(value)
+        if self.next.get(kind) != i:
+            self.index[kind].fill_(i)
+        self.Z.copy_(Z)
+        graph, captured = self.graphs[kind]
+        graph.replay()
+        self.next[kind] = i + 1
+        counters.add("graph.replays")
+        profiling.replayed(captured)
+        return self.static[kind]
+
+    def _capture(self, kind) -> None:
+        static = self.static[kind]
+        graph = torch.cuda.CUDAGraph()
+        with span("sapg.capture"), profiling.capturing() as captured, \
+                torch.cuda.stream(self.stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = self.fns[kind](static, self.index[kind], self.Z)
+                for buf, value in zip(static[:3], out[:3]):
+                    buf.copy_(value)
+                if kind == "main":
+                    torch.stack([out[3], out[4]] + [out[5][n] for n in self.param_names],
+                                out=self.scal)
+                self.index[kind].add_(1)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass   # the capture was invalidated by the error raised
+                raise
+            graph.capture_end()
+        counters.add("graph.captures")
+        self.graphs[kind] = (graph, captured)
+
+
+def _loop_for(problem: Problem, n_chains: int, route: Optional[str], graphs: bool) -> _Loop:
+    """The run's loop: a _GraphLoop where resolve_graph_replay holds (the
+    one kept in problem.step_graphs for this chain count and route, or a
+    new one kept there in place of any other), else an eager _Loop."""
+    blur, sapg = problem.blur, problem.cfg.sapg
+    r = resolve_step_route(blur.shape, problem.device) if route is None else route
+    if not (graphs and resolve_graph_replay(sapg, r, blur.fft_mode, problem.device, blur.shape,
+                                            n_chains)):
+        return _Loop(problem, n_chains, route)
+    key = (n_chains, r)
+    loop = problem.step_graphs.get(key)
+    if loop is None:
+        problem.step_graphs.clear()
+        loop = problem.step_graphs[key] = _GraphLoop(problem, n_chains, route)
+    return loop
 
 
 def _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
-              checkpoint_every, checkpoint_path, checkpoint_backend, fault_hook, max_restores):
+              checkpoint_every, checkpoint_path, checkpoint_backend, fault_hook, max_restores,
+              graphs):
     """run_sapg on one device, inside its `sapg.run` span."""
     with span("sapg.prologue"):
         cfg = problem.cfg
@@ -977,8 +1233,10 @@ def _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
         blur = problem.blur
         dtype = blur.dtype
         device = problem.device
-        step, aux = make_sapg_step(problem, n_chains, route=route)
-        shape = (n_chains,) + tuple(blur.shape)
+        loop = _loop_for(problem, n_chains, route, graphs)
+        loop.begin()
+        aux = loop.aux
+        shape = loop.shape
         source_generator = None  # the generator whose state is the noise state
         if aux["in_kernel_rng"](n_chains):
             if seeds is None:
@@ -997,7 +1255,6 @@ def _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
 
         psf_names = aux["psf_names"]
         prox_b, tv_b, pnorm2 = aux["prox_b"], aux["tv_b"], aux["pnorm2"]
-        warm_step, consts = aux["warm_step"], aux["consts"]
         lam = aux["lam"]
         theta0, params0, H0 = aux["theta0"], aux["params0"], aux["H0"]
         sigma0 = problem.sigma2_init
@@ -1018,7 +1275,7 @@ def _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
         else:
             prox = prox_b(X, lam * theta0)[0]
             Xhat = blur.rfft(X)
-            logpi_wu = torch.empty((n_warm,), dtype=dtype, device=device)
+            logpi_wu = loop.logpi_wu
             carry = (X, Xhat, prox)
     if not resume:
         with span("sapg.warmup"):
@@ -1026,9 +1283,7 @@ def _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
                 with span("sapg.warm_step"):
                     with span("sapg.noise"):
                         Z = draw()
-                    carry, logpi = warm_step(carry, consts, Z)
-                    with span("sapg.trace"):
-                        logpi_wu[t] = logpi
+                    carry = loop.warm(carry, t, Z)
         X, Xhat, prox = carry
         # logPiTraceX(1) = logPi at the warm-start sample with the init params
         res2_0 = pnorm2(H0[None] * Xhat - yhat[None])
@@ -1040,21 +1295,12 @@ def _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
 
     def scan_seg(carry, iis):
         with span("sapg.segment"):
-            iis = list(iis)
-            names = None
-            buf = None
-            for t, ii in enumerate(iis):
+            for ii in iis:
                 with span("sapg.step"):
                     with span("sapg.noise"):
                         Z = draw()
-                    carry, tr = step(carry, ii, Z)
-                    with span("sapg.trace"):
-                        if buf is None:
-                            names = list(tr)
-                            buf = torch.empty((len(names), len(iis)), dtype=dtype, device=device)
-                        buf[:, t] = torch.stack([tr[n] for n in names])
-            host = buf.cpu().numpy() if buf is not None else None
-            return carry, {n: host[i] for i, n in enumerate(names)} if names else {}
+                    carry = loop.main(carry, ii, Z)
+            return carry, loop.traces(iis)
 
     def restore():
         nonlocal logpi_wu, logpi0

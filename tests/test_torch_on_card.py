@@ -59,6 +59,15 @@ the same run's samples within 1e-5.  With the recorder on
 (runtime/profiling.py), `sweeps.B` counts the sweeps kernel B ran, as the
 plain version counts them, and over a run the sum of its iters tensors.
 
+CUDA graphs (sapg/estimator.py, route B): a run_sapg that replays its
+iterations as captured graphs gives the eager step's traces and X_last bit
+for bit at 512² B=1 (Gaussian pinned, Moffat free), 64² B=16 and 64² B=1
+(isotropic Gaussian: its width free, σ² pinned, θ in log scale), in the
+capturing run and the next; each iteration is a replay or an eager step;
+kernel B's launches and sweep counts are the eager run's (25 sweeps a call
+at 512²); a preempted and resumed graphed run and a NaN-guard restore
+through fault_hook end on the eager trajectory; the barrier error stays 0.
+
 Per-chain scalars (the problems of a sharded run in one launch): A1, A2,
 B, C, F and G called with one λ (and γ, λθ, σ²) a chain, as (B,) tensors,
 equal their plain versions fed the same vectors bit for bit at a fixed
@@ -751,7 +760,8 @@ def test_sweep_counter_is_kernel_b_sweeps(cuda_device, monkeypatch):
         real = profiling.count_sweeps
 
         def spy(kernel, iters):
-            if kernel == "B":
+            # a CUDA graph's capture runs nothing: each replay reports a copy
+            if kernel == "B" and not torch.cuda.is_current_stream_capturing():
                 written.append(iters.clone())
             real(kernel, iters)
 
@@ -766,6 +776,122 @@ def test_sweep_counter_is_kernel_b_sweeps(cuda_device, monkeypatch):
     finally:
         profiling.disable()
         profiling.reset()
+
+
+# ---------------------------------------------------------------------------
+# run_sapg's iterations as CUDA graphs (route B): the replays against the
+# eager step, bit for bit
+# ---------------------------------------------------------------------------
+
+def _graph_problem(cuda_device, name, size, **sapg):
+    import dataclasses
+
+    from semiblind_tv_tpu_torch.runtime.config import preset
+    from semiblind_tv_tpu_torch.runtime.problem import build_problem
+    from semiblind_tv_tpu_torch.utils.images import load_image, synthetic_wheel
+
+    cfg = preset(name)
+    cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, **sapg))
+    image = load_image("wheel") if size == 512 else synthetic_wheel(size)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    return build_problem(image, cfg, gen, device=cuda_device)
+
+
+def _draws(cuda_device, seed):
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    return lambda shape: torch.randn(shape, generator=gen, device=cuda_device)
+
+
+def _assert_bit_equal(a, b):
+    pairs = [(a.thetas, b.thetas), (a.sigma2s, b.sigma2s), (a.logPiTrace, b.logPiTrace),
+             (a.logPiTrace_warmup, b.logPiTrace_warmup), (a.X_last, b.X_last)]
+    pairs += [(a.psf_param_traces[n], b.psf_param_traces[n]) for n in a.psf_param_traces]
+    for x, y in pairs:
+        assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("name,size,B", [("gaussian", 512, 1), ("moffat", 512, 1),
+                                         ("gaussian", 64, 16), ("isotropic_gaussian", 64, 1)])
+def test_graphed_run_is_bit_equal_to_the_eager_run(cuda_device, name, size, B):
+    """run_sapg replays its iterations as CUDA graphs on route B: traces and
+    X_last equal the eager step's bit for bit, in the capturing run and in
+    the next (which replays every iteration), each iteration is a replay or
+    an eager step, kernel B's sweeps are the eager run's, and the resident
+    kernel's barriers complete."""
+    from semiblind_tv_tpu_torch.runtime import profiling
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
+
+    warmup, samples = 30, 60
+    problem = _graph_problem(cuda_device, name, size, samples=samples, warmup=warmup,
+                             burn_in=40)
+    steps = (warmup - 1) + (samples - 1)
+    profiling.reset()
+    profiling.enable(in_sessions=False)
+    try:
+        runs, counts = [], []
+        for graphs in (False, True, True):
+            profiling.reset()
+            runs.append(run_sapg(problem, n_chains=B, noise=_draws(cuda_device, 5),
+                                 _graphs=graphs))
+            counts.append(profiling.snapshot()["counters"])
+    finally:
+        profiling.disable()
+        profiling.reset()
+    eager, first, second = counts
+    assert first["graph.captures"] == 2 and "graph.captures" not in second
+    assert first["graph.replays"] + first["graph.eager_steps"] == steps
+    assert second["graph.replays"] == steps and "graph.eager_steps" not in second
+    assert eager["graph.eager_steps"] == steps and "graph.replays" not in eager
+    for c in (first, second):
+        for k in ("launches.B", "sweeps.B", "chain_calls.B"):
+            assert c[k] == eager[k], k
+    assert eager["chain_calls.B"] == B * steps
+    if size == 512:
+        assert eager["sweeps.B"] == 25 * eager["chain_calls.B"]
+    _assert_bit_equal(runs[1], runs[0])
+    _assert_bit_equal(runs[2], runs[0])
+    assert tv_cuda.barrier_error() == 0
+
+
+def test_graphed_run_resumes_and_restores_as_the_eager_run(cuda_device, tmp_path):
+    """With checkpoints: a graphed run preempted after its second segment
+    and resumed, and a graphed run whose NaN-poisoned carry (fault_hook)
+    the guard restores from the checkpoint, each end bit-equal to the
+    uninterrupted eager run."""
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
+
+    problem = _graph_problem(cuda_device, "moffat", 64, samples=40, warmup=10, burn_in=32)
+
+    def gen():
+        return torch.Generator(device=cuda_device).manual_seed(2)
+
+    full = run_sapg(problem, gen(), _graphs=False)
+
+    def preempt(seg_idx, carry):
+        if seg_idx == 2:
+            raise _Preempted()
+        return carry
+
+    ckpt = str(tmp_path / "resume.npz")
+    with pytest.raises(_Preempted):
+        run_sapg(problem, gen(), checkpoint_every=10, checkpoint_path=ckpt, fault_hook=preempt)
+    resumed = run_sapg(problem, torch.Generator(device=cuda_device).manual_seed(9),
+                       checkpoint_every=10, checkpoint_path=ckpt)
+    _assert_bit_equal(resumed, full)
+
+    fired = []
+
+    def poison(seg_idx, carry):
+        if seg_idx == 2 and not fired:
+            fired.append(seg_idx)
+            return (torch.full_like(carry[0], float("nan")),) + tuple(carry[1:])
+        return carry
+
+    restored = run_sapg(problem, gen(), checkpoint_every=10,
+                        checkpoint_path=str(tmp_path / "nan.npz"), fault_hook=poison)
+    assert fired == [2]
+    _assert_bit_equal(restored, full)
+    assert tv_cuda.barrier_error() == 0
 
 
 # ---------------------------------------------------------------------------
