@@ -33,13 +33,14 @@ Chrome trace that Perfetto opens.  A long run resumes from a checkpoint through
 `--mesh DxC` runs the SAPG phase on a ('data', 'chains') mesh
 (parallel/sapg_parallel.py) and `--space-mesh S` row-splits the image over
 a ('space',) mesh (parallel/spatial.run_sapg_spatial; it forces
-fft_mode='dft' and one chain); the MAP solve then runs on each rank.  On
-`cuda` the world must hold the mesh: start the ranks with `torchrun
---nproc-per-node=D*C` (or S), or run a 1x1 mesh in one process; a world
-smaller than the mesh raises, with no fallback to the CPU.  With `--device
-cpu` and no world set up, the CLI starts the mesh's gloo processes itself
-(the counterpart of the JAX CLI's virtual CPU mesh); rank 0 prints and
-writes the results.
+fft_mode='dft' and one chain); the MAP solve then runs on each rank.  With
+no world set up the CLI starts the mesh's other ranks itself
+(runtime/distributed.start_world: gloo processes with `--device cpu`, the
+counterpart of the JAX CLI's virtual CPU mesh, and for `--mesh` NCCL on the
+host's cards with `--device cuda`, one card a rank) and runs as rank 0;
+under `torchrun --nproc-per-node=D*C` (or S) it joins torchrun's world,
+which `--space-mesh` on `cuda` needs.  A mesh larger than the host's cards
+raises, with no fallback to the CPU.  Rank 0 prints and writes the results.
 
 `--device` defaults to `cuda`; a CUDA request on a machine without a card
 raises.
@@ -315,11 +316,14 @@ def main(argv=None):
     if args.mesh is not None:
         mesh_shape = tuple(int(v) for v in args.mesh.lower().split("x"))
     ranks = args.space_mesh or (mesh_shape[0] * mesh_shape[1] if mesh_shape else 1)
-    if ranks > 1 and torch.device(args.device).type == "cpu" and not _in_world():
-        # the mesh's gloo processes, started here; rank 0 returns the results
-        from semiblind_tv_tpu_torch.runtime.distributed import spawn
+    on_cpu = torch.device(args.device).type == "cpu"
+    if ranks > 1 and not _in_world() and (on_cpu or args.space_mesh is None):
+        # the mesh's other ranks, started here; this process is rank 0
+        from semiblind_tv_tpu_torch.runtime.distributed import start_world
 
-        return spawn(_demo_rank, ranks, (list(argv) if argv is not None else sys.argv[1:],))[0]
+        argv = list(argv) if argv is not None else sys.argv[1:]
+        with start_world(_demo_rank, ranks, (argv,), device_type="cpu" if on_cpu else "cuda"):
+            return main(argv)
     if args.plots:
         if args.out is None:
             p.error("--plots writes its figures to --out DIR")
@@ -405,7 +409,8 @@ def _in_world() -> bool:
 
 
 def _demo_rank(rank, argv):
-    """One rank of a CPU mesh the CLI started: the same main, in the world."""
+    """One rank of a mesh the CLI started (start_world: gloo on the CPU,
+    NCCL on the cards): the same main, in the world."""
     return main(argv)
 
 

@@ -34,6 +34,16 @@ returns one SAPGResult per problem, on every rank (the chains' final
 states gathered over 'chains', the problems over 'data').
 `run_sapg_sharded_steps` is the bare stepper (no warm-up) for throughput
 runs.
+
+On a card, where the rank's step meets estimator.resolve_graph_replay's
+rule (route 'B' with kernel B, fft_mode 'fft', a noise field, no posterior
+moments), run_sapg_sharded replays each warm-up and SAPG iteration as CUDA
+graphs cut at the step's all_reduce, which runs eagerly between them
+(_GraphIterations), and keeps them for the problems' next runs on the
+mesh; so the host's only work a replayed iteration is the draw, the
+launches and the collective's call, and every rank's card, not its host
+loop, sets the pace the all_reduce couples them to.  The bare stepper runs
+eagerly.
 """
 from __future__ import annotations
 
@@ -56,16 +66,19 @@ from semiblind_tv_tpu_torch.runtime.checkpoint import (
     save_checkpoint_arrays,
 )
 from semiblind_tv_tpu_torch.runtime.problem import Problem
+from semiblind_tv_tpu_torch.runtime import profiling
 from semiblind_tv_tpu_torch.runtime.profiling import counters, fold_sweeps, span
 from semiblind_tv_tpu_torch.sapg.estimator import (
     SAPGResult,
     _host,
     _merge_traces,
+    _store,
     assemble_result,
     generator_noise,
     generator_seeds,
     make_general_sapg_step,
     problem_consts,
+    resolve_graph_replay,
     run_segmented_scan,
 )
 
@@ -89,14 +102,19 @@ def build_sharded_sapg(
     chains_per_shard: int = 1,
     warmup: Optional[int] = None,
     route: Optional[str] = None,
+    samples: Optional[int] = None,
+    graphs: bool = False,
 ) -> dict:
     """The rank's share of a sharded run: its problems and chains, the
     batched step and the warm-up and main-scan drivers.
 
     All problems share image shape, PSF family and config (independent
     instances: the driver's `for i_im` loop, run_Gaussian_demo.m:100) and
-    lie on this rank's device.  `warmup` overrides cfg.sapg.warmup (the
-    bare stepper passes 1: no warm-up iterations).
+    lie on this rank's device.  `warmup` and `samples` override
+    cfg.sapg.warmup and cfg.sapg.samples (the bare stepper passes 1 and its
+    step count: no warm-up iterations).  `graphs`: the iterations replay as
+    CUDA graphs (_GraphIterations) where resolve_graph_replay holds for the
+    rank's step, else they run eagerly.
 
     Returns a dict: start(X0) -> the warm-up's first carry; warm(carry,
     draw) -> (carry, logpi_wu (n_warm, D_l), logpi0 (D_l,)); scan(carry,
@@ -104,7 +122,7 @@ def build_sharded_sapg(
     (T, D_l)); init_x(x0) -> X0; and local (the rank's problem indices),
     rows (its chains' slice of a problem's C), n_chains (C), n_warm,
     psf_names, consts, aux, group (the chains group, None for one rank),
-    data_group."""
+    data_group, iterations (the _Iterations)."""
     p0 = problems[0]
     cfg = p0.cfg
     blur = p0.blur
@@ -149,18 +167,20 @@ def build_sharded_sapg(
         prox = aux["prox_b"](X, (consts["lam"] * aux["theta0"]).repeat_interleave(C_l))[0]
         return X, blur.rfft(X), prox
 
+    n_cols = (cfg.sapg.samples if samples is None else samples) + 1
+    use_graphs = graphs and resolve_graph_replay(
+        cfg.sapg, aux["route"], blur.fft_mode, device, shape, C_l)
+    its = (_GraphIterations if use_graphs else _Iterations)(
+        step, aux, consts, blur, D_l, C_l, n_warm, n_cols)
+
     def warm(carry, draw):
         """Warm-up (SAPG_algorithm_Guassian.m:67-93) from start's carry."""
-        logpi_wu = torch.empty((n_warm, D_l), dtype=dtype, device=device)
         with span("sapg.warmup"):
             for t in range(n_warm):
                 with span("sapg.warm_step"):
                     with span("sapg.noise"):
                         Z = draw()
-                    counters.add("graph.eager_steps")
-                    carry, logpi = aux["warm_step"](carry, consts, Z)
-                    with span("sapg.trace"):
-                        logpi_wu[t] = logpi
+                    carry = its.warm(carry, t, Z)
         X, Xhat, prox = carry
         # logPiTraceX(1): logPi at the warm-start sample with the init params
         logpi0 = aux["logpi_init"](Xhat, aux["tv_b"](X), consts)
@@ -168,39 +188,219 @@ def build_sharded_sapg(
         if cfg.sapg.track_posterior_moments:
             carry += (dict(pm_mean=torch.zeros_like(X), pm_m2=torch.zeros_like(X),
                            pm_count=0.0),)
-        return carry, logpi_wu, logpi0
+        return carry, its.logpi_wu.T, logpi0
 
     def scan(carry, iis, draw):
-        """The main iterations iis; host traces {name: (T, D_l)}, read back
-        once."""
+        """The main iterations iis (a range); host traces {name: (T, D_l)},
+        read back once."""
         with span("sapg.segment"):
-            iis = list(iis)
-            names, buf = None, None
-            for t, ii in enumerate(iis):
+            for ii in iis:
                 with span("sapg.step"):
                     with span("sapg.noise"):
                         Z = draw()
-                    counters.add("graph.eager_steps")
-                    carry, tr = step(carry, ii, consts, Z)
-                    with span("sapg.trace"):
-                        if buf is None:
-                            names = list(tr)
-                            buf = torch.empty((len(names), len(iis), D_l), dtype=dtype,
-                                              device=device)
-                        buf[:, t] = torch.stack([tr[n] for n in names])
-            if buf is None:
-                return carry, {}
-            host = buf.cpu().numpy()
-            return carry, {n: host[i] for i, n in enumerate(names)}
+                    carry = its.main(carry, ii, Z)
+            return carry, its.traces(iis)
 
     return dict(
-        start=start, warm=warm, scan=scan, init_x=init_x, local=local,
+        start=start, warm=warm, scan=scan, init_x=init_x, local=local, iterations=its,
         rows=slice(ci * C_l, (ci + 1) * C_l),
         n_chains=C, chains_per_shard=C_l, n_warm=n_warm, psf_names=aux["psf_names"],
         consts=consts, aux=aux, group=group, n_group=S,
         data_group=mesh.get_group(DATA_AXIS) if Dm > 1 else None, shape=shape,
         device=device, dtype=dtype,
     )
+
+
+class _Iterations:
+    """The rank's warm-up and SAPG iterations, eagerly.  warm(carry, t, Z)
+    and main(carry, ii, Z) run one, storing its trace on the device: the
+    warm-up's logπ at column t of `logpi_wu` (D_l, n_warm), the step's
+    trace at column ii of `buf` (rows `names`, then D_l), read back a
+    segment at a time (traces).  warm_iter and main_iter are the
+    iterations themselves, with t and ii host ints or device indices
+    (_GraphIterations captures them)."""
+
+    def __init__(self, step, aux, consts, blur, D_l, C_l, n_warm, n_cols):
+        self.step, self.aux, self.consts = step, aux, consts
+        self.n_cols, self.D_l = n_cols, D_l
+        self.shape = (D_l * C_l,) + tuple(blur.shape)
+        self.dtype, self.device = blur.dtype, blur.device
+        self.logpi_wu = torch.empty((D_l, n_warm), dtype=self.dtype, device=self.device)
+        self.names = self.buf = None
+
+    def begin(self) -> None:
+        """Called as a run starts."""
+
+    def warm_iter(self, carry, t, Z):
+        carry, logpi = self.aux["warm_step"](carry, self.consts, Z)
+        with span("sapg.trace"):
+            _store(self.logpi_wu, t, logpi)
+        return carry
+
+    def main_iter(self, carry, ii, Z):
+        carry, tr = self.step(carry, ii, self.consts, Z)
+        with span("sapg.trace"):
+            if self.buf is None:
+                self.names = list(tr)
+                self.buf = torch.empty((len(self.names), self.D_l, self.n_cols),
+                                       dtype=self.dtype, device=self.device)
+            _store(self.buf, ii, torch.stack([tr[n] for n in self.names]))
+        return carry
+
+    def warm(self, carry, t: int, Z):
+        counters.add("graph.eager_steps")
+        return self.warm_iter(carry, t, Z)
+
+    def main(self, carry, ii: int, Z):
+        counters.add("graph.eager_steps")
+        return self.main_iter(carry, ii, Z)
+
+    def traces(self, iis: range) -> dict:
+        """The host copy of the traces of iterations iis, {name: (T, D_l)}
+        (one read)."""
+        if not len(iis):
+            return {}
+        host = self.buf[..., iis.start:iis.stop].cpu().numpy()
+        return {n: host[i].T for i, n in enumerate(self.names)}
+
+
+class _GraphIterations(_Iterations):
+    """The rank's iterations as CUDA graphs, as estimator._GraphLoop runs a
+    run on one card: static carry buffers (θ, σ² and the PSF parameters as
+    rows of one (2 + P, D_l) block), a static noise field Z and a device
+    index a kind, the first iteration of a kind run eagerly on the capture
+    stream, then captured and replayed by every later iteration of the
+    runs that keep these iterations (run_sapg_sharded keeps them in the
+    first problem's step_graphs).
+
+    The step's all_reduce over the chains group stays out of the graphs: the
+    capture ends a graph where the step calls it (aux["cuts"]) and goes on
+    in the next, in the same memory pool, and a replay runs the graphs in
+    turn with the all_reduce of the captured statistics between them,
+    eagerly, as the eager step runs it.  So a replayed iteration costs the
+    host its draw, two graph launches and the collective's own call."""
+
+    def __init__(self, step, aux, consts, blur, D_l, C_l, n_warm, n_cols):
+        super().__init__(step, aux, consts, blur, D_l, C_l, n_warm, n_cols)
+        dtype, device, shape = self.dtype, self.device, self.shape
+        self.stream = torch.cuda.Stream(device)
+        X = torch.empty(shape, dtype=dtype, device=device)
+        Xhat = torch.empty(shape[:-1] + (shape[-1] // 2 + 1,), dtype=blur.cdtype,
+                           device=device)
+        prox = torch.empty_like(X)
+        self.param_names = list(aux["params0"])
+        self.scal = torch.empty((2 + len(self.param_names), D_l), dtype=dtype, device=device)
+        self.static = {
+            "warm": (X, Xhat, prox),
+            "main": (X, Xhat, prox, self.scal[0], self.scal[1],
+                     {n: self.scal[2 + i] for i, n in enumerate(self.param_names)}),
+        }
+        self.Z = torch.empty_like(X)
+        self.index = {k: torch.zeros((1,), dtype=torch.int64, device=device)
+                      for k in self.static}
+        self.fns = {"warm": self.warm_iter, "main": self.main_iter}
+        self.graphs, self.next = {}, {}
+
+    def begin(self) -> None:
+        self.next = {}
+
+    def warm(self, carry, t: int, Z):
+        return self._iterate("warm", carry, t, Z)
+
+    def main(self, carry, ii: int, Z):
+        return self._iterate("main", carry, ii, Z)
+
+    def _pairs(self, kind, carry):
+        static = self.static[kind]
+        pairs = list(zip(static[:5], carry[:5]))
+        if kind == "main":
+            pairs += [(static[5][n], carry[5][n]) for n in self.param_names]
+        return pairs
+
+    def _iterate(self, kind, carry, i, Z):
+        if kind not in self.graphs:
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                carry = self.fns[kind](carry, i, Z)
+            cur.wait_stream(self.stream)
+            counters.add("graph.eager_steps")
+            self._capture(kind)
+            return carry
+        for buf, value in self._pairs(kind, carry):
+            if value is not buf:
+                buf.copy_(value)
+        if self.next.get(kind) != i:
+            self.index[kind].fill_(i)
+        self.Z.copy_(Z)
+        pieces, sums, captured = self.graphs[kind]
+        for k, graph in enumerate(pieces):
+            graph.replay()
+            if k < len(sums):
+                self.aux["all_reduce"](sums[k])
+        self.next[kind] = i + 1
+        counters.add("graph.replays")
+        profiling.replayed(captured)
+        return self.static[kind]
+
+    def _capture(self, kind) -> None:
+        static, pool = self.static[kind], torch.cuda.graph_pool_handle()
+        pieces, sums = [], []
+
+        def begin():
+            pieces.append(torch.cuda.CUDAGraph())
+            pieces[-1].capture_begin(pool=pool, capture_error_mode="thread_local")
+
+        def cut(packed):
+            pieces[-1].capture_end()
+            sums.append(packed)
+            begin()
+
+        with span("sapg.capture"), profiling.capturing() as captured, \
+                torch.cuda.stream(self.stream):
+            self.aux["cuts"].append(cut)
+            try:
+                begin()
+                out = self.fns[kind](static, self.index[kind], self.Z)
+                for buf, value in zip(static[:3], out[:3]):
+                    buf.copy_(value)
+                if kind == "main":
+                    torch.stack([out[3], out[4]] + [out[5][n] for n in self.param_names],
+                                out=self.scal)
+                self.index[kind].add_(1)
+            except BaseException:
+                try:
+                    pieces[-1].capture_end()
+                except RuntimeError:
+                    pass   # the capture was invalidated by the error raised
+                raise
+            finally:
+                self.aux["cuts"].pop()
+            pieces[-1].capture_end()
+        counters.add("graph.captures")
+        self.graphs[kind] = (pieces, sums, captured)
+
+
+def _iterations_for(problems, mesh, chains_per_shard, route, graphs) -> dict:
+    """build_sharded_sapg's dict for a run: where its iterations replay as
+    CUDA graphs, the one kept in the first problem's step_graphs for these
+    problems, this mesh, chain count and route (a new one kept there in
+    place of any other), else a new one."""
+    built = None
+    if graphs:
+        key = ("sharded", int(chains_per_shard), route)
+        kept = problems[0].step_graphs.get(key)
+        if kept is not None and kept["mesh"] is mesh and len(kept["problems"]) == len(problems) \
+                and all(a is b for a, b in zip(kept["problems"], problems)):
+            built = kept
+    if built is None:
+        built = build_sharded_sapg(problems, mesh, chains_per_shard, route=route, graphs=graphs)
+        if isinstance(built["iterations"], _GraphIterations):
+            built.update(mesh=mesh, problems=list(problems))
+            problems[0].step_graphs.clear()
+            problems[0].step_graphs[key] = built
+    built["iterations"].begin()
+    return built
 
 
 def _problem_sources(problems, generators, noise, seeds, built):
@@ -230,8 +430,16 @@ def _problem_sources(problems, generators, noise, seeds, built):
         sources.append((lambda s=src: s(C)) if ikr else (lambda s=src: s(shape)))
     whole = built["n_group"] == 1
 
+    def kept(field):
+        """The rank's rows of a problem's whole field; counts the elements
+        drawn and kept (`noise.drawn`, `noise.kept`)."""
+        part = field[rows]
+        counters.add("noise.drawn", field.numel())
+        counters.add("noise.kept", part.numel())
+        return part
+
     def draw():
-        parts = [src() if whole else src()[rows] for src in sources]
+        parts = [src() if whole else kept(src()) for src in sources]
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     return draw, state_gens
@@ -291,8 +499,9 @@ def _gather_chains(v: np.ndarray, built) -> np.ndarray:
     if built["group"] is None:
         return v.reshape((D_l, C_l) + v.shape[1:])
     parts = [None] * built["n_group"]
-    dist.all_gather_object(parts, v, group=built["group"])
-    return np.concatenate([p.reshape((D_l, C_l) + v.shape[1:]) for p in parts], axis=1)
+    with span("sapg.gather"):
+        dist.all_gather_object(parts, v, group=built["group"])
+        return np.concatenate([p.reshape((D_l, C_l) + v.shape[1:]) for p in parts], axis=1)
 
 
 def _gather_data(items: list, built) -> list:
@@ -300,7 +509,8 @@ def _gather_data(items: list, built) -> list:
     if built["data_group"] is None:
         return items
     parts = [None] * dist.get_world_size(built["data_group"])
-    dist.all_gather_object(parts, items, group=built["data_group"])
+    with span("sapg.gather"):
+        dist.all_gather_object(parts, items, group=built["data_group"])
     return [x for p in parts for x in p]
 
 
@@ -319,6 +529,7 @@ def run_sapg_sharded(
     fault_hook=None,
     nan_guard: bool = True,
     max_restores: int = 1,
+    _graphs: bool = True,
 ) -> List[SAPGResult]:
     """The complete pipeline on a ('data', 'chains') mesh; every rank of the
     mesh calls it with the same arguments.
@@ -334,14 +545,17 @@ def run_sapg_sharded(
     run_sapg does; a world of one process writes npz (or the directory
     backend, "orbax"), a larger world must take "orbax", every rank writing
     its own arrays.  The generator states ride along.  fault_hook(seg_idx,
-    carry) gets the rank's carry (X, Xhat, prox, θ, σ², params[, extra])."""
+    carry) gets the rank's carry (X, Xhat, prox, θ, σ², params[, extra]);
+    where the iterations replay as CUDA graphs that carry is the graphs'
+    buffers, valid until the next iteration.  _graphs=False runs the step
+    eagerly where the graphs would engage (for tests)."""
     if dist.is_initialized() and dist.get_world_size() > 1 and checkpoint_backend == "npz" \
             and checkpoint_path is not None:
         raise ValueError("a multi-process run checkpoints to a directory: "
                          "checkpoint_backend='orbax'")
     with span("sapg.run"):
         with span("sapg.prologue"):
-            built = build_sharded_sapg(problems, mesh, chains_per_shard, route=route)
+            built = _iterations_for(problems, mesh, chains_per_shard, route, _graphs)
             cfg = problems[0].cfg
             device = built["device"]
             draw, gens = _problem_sources(problems, generators, noise, seeds, built)
@@ -402,7 +616,8 @@ def run_sapg_sharded_steps(problems, mesh, generators, chains_per_shard=1, n_ste
     no warm-up phase.  Returns (state, θ traces (D, n_steps)) with state =
     dict(X = the rank's (D_l·C_l, M, N) chains, theta and sigma2 of every
     problem (D,), n_chains = C)."""
-    built = build_sharded_sapg(problems, mesh, chains_per_shard, warmup=1, route=route)
+    built = build_sharded_sapg(problems, mesh, chains_per_shard, warmup=1, route=route,
+                               samples=n_steps + 1)
     draw, _ = _problem_sources(problems, generators, None, None, built)
     carry, _, _ = built["warm"](built["start"](built["init_x"]()), draw)
     carry, traces = built["scan"](carry, range(2, n_steps + 2), draw)

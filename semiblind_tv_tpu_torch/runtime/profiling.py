@@ -40,7 +40,15 @@ SALSA/callcounter.m:8-16).  Here:
                         reports them (`replayed()`).  The SAPG run counts
                         `graph.captures`, `graph.replays` and
                         `graph.eager_steps` (iterations run without a
-                        replay), always on.
+                        replay), always on.  Only across ranks (a chains
+                        group of more than one) the sharded run also counts,
+                        always on, `collective.all_reduce.calls` and
+                        `.bytes` (sapg/estimator.py's problem_means, in the
+                        span `sapg.allreduce`) and the noise elements each
+                        rank draws and keeps, `noise.drawn`/`noise.kept`
+                        (parallel/sapg_parallel.py), and records the spans
+                        `sapg.gather` (the end-of-run gathers) and
+                        `world.start` (runtime/distributed.start_world).
   * `trace(dir)`      — a torch.profiler region (CPU, and the card's kernels
                         when CUDA is available) whose Chrome trace is written
                         to `dir/trace.json` (view in Perfetto or

@@ -79,9 +79,10 @@ only draws the noise, copies it into the graph's input and replays.  The
 step holds no host scalar for this: the SA updates read their step
 coefficients from a device table (sa_step_coefficients), and the traces
 are stored at a device index the graph advances.  Every other case runs
-the same step eagerly.  The counters `graph.captures`, `graph.replays`
-and `graph.eager_steps` (iterations run without a replay) say how often
-it engages.
+the same step eagerly (the sharded path replays graphs of its own, cut at
+its all_reduce: parallel/sapg_parallel).  The counters `graph.captures`,
+`graph.replays` and `graph.eager_steps` (iterations run without a replay)
+say how often it engages.
 
 The noise source is injectable: `noise(shape) -> (B, M, N) tensor` is
 called once per warm-up and main step, in that order; the default draws
@@ -277,7 +278,9 @@ def resolve_graph_replay(sapg, route: str, fft_mode: str, device, shape, B: int,
     graphs: on a CUDA device, on route 'B' with the fused step (kernel B),
     fft_mode 'fft', a noise field (not the in-kernel noise's seeds), no
     mesh and no posterior moments (Welford's update branches on the host's
-    ii).  Everywhere else the same step runs eagerly.  Launches nothing."""
+    ii).  Everywhere else the same step runs eagerly.  The sharded path
+    asks it of each rank's step, with no mesh (parallel/sapg_parallel).
+    Launches nothing."""
     return bool(
         torch.device(device).type == "cuda"
         and mesh is None
@@ -368,7 +371,9 @@ def make_general_sapg_step(
     over a problem's chains; with `chains_group` (a torch.distributed group
     of S ranks holding the other chains of the same problems) it is then
     all-reduced over the group and divided by S — lax.pmean — in one
-    all_reduce a step, on the device."""
+    all_reduce a step, on the device: aux["all_reduce"](packed), or, while
+    aux["cuts"] holds a function, that function, which a piecewise CUDA
+    graph capture ends its graph at (parallel/sapg_parallel)."""
     _check_ported(cfg)
     sapg = cfg.sapg
     dtype = blur.dtype
@@ -399,6 +404,15 @@ def make_general_sapg_step(
         """A per-problem scalar as the kernels' per-chain vector."""
         return v.repeat_interleave(C) if batched else v
 
+    cuts = []
+
+    def all_reduce(packed):
+        """packed summed over the chains group, in place."""
+        counters.add("collective.all_reduce.calls")
+        counters.add("collective.all_reduce.bytes", packed.numel() * packed.element_size())
+        with span("sapg.allreduce"):
+            dist.all_reduce(packed, group=chains_group)
+
     def problem_means(fn, *args):
         """The chain means of the statistics fn(*args) returns, {name: (C,)
         tensor} of ONE problem's quantities, then their average over the
@@ -414,7 +428,7 @@ def make_general_sapg_step(
             out = {k: torch.mean(v) for k, v in fn(*args).items()}
         if n_group > 1:
             packed = torch.stack(list(out.values()))
-            dist.all_reduce(packed, group=chains_group)
+            (cuts[-1] if cuts else all_reduce)(packed)
             out = dict(zip(out, (packed / n_group).unbind(0)))
         return out
 
@@ -691,6 +705,8 @@ def make_general_sapg_step(
         fuse_dft=fuse_dft,
         in_kernel_rng=in_kernel_rng,
         logpi_init=logpi_init,
+        all_reduce=all_reduce,
+        cuts=cuts,
     )
     return step, aux
 
@@ -1034,7 +1050,7 @@ def run_sapg(
             noise=None if noise is None else [noise], seeds=None if seeds is None else [seeds],
             route=route, checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path,
             checkpoint_backend=checkpoint_backend, fault_hook=fault_hook, nan_guard=nan_guard,
-            max_restores=max_restores,
+            max_restores=max_restores, _graphs=_graphs,
         )[0]
     with span("sapg.run"):
         return _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,

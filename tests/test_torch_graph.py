@@ -10,7 +10,8 @@ resolve_graph_replay; runtime/profiling.py: capturing, replayed).
   run with those Python floats (today's formulas), for the Gaussian
   (pinned) and Moffat (free) presets with the log-scale options off and on.
 * The step and its trace store with device indices (what a graph
-  captures) equal the same with host ints, bit for bit.
+  captures) equal the same with host ints, bit for bit; so do the sharded
+  path's problem-batched iterations (parallel/sapg_parallel._Iterations).
 * The engagement rule takes the graphs only on a CUDA device, route 'B',
   fft_mode 'fft', a noise field, no mesh and no posterior moments.
 * A capture's launch and sweep reports leave the counters as they were and
@@ -122,6 +123,39 @@ def test_device_indices_give_the_host_index_results(name):
             carry = loop.main_iter(carry, at(ii), Zs[ii + 2])
         outs.append([loop.logpi_wu.clone(), loop.buf[:, 2:].clone(), carry[0], carry[3],
                      carry[4], *carry[5].values()])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_sharded_iterations_at_device_indices_give_the_host_index_results():
+    from semiblind_tv_tpu_torch.parallel.sapg_parallel import _Iterations, stack_problem_consts
+
+    cfg = _cfg("moffat", samples=12, warmup=5)
+    problems = [_problem(cfg), build_problem(synthetic_wheel(SIZE), cfg, dtype=torch.float32,
+                                             device="cpu", noise=np.ones((SIZE, SIZE)))]
+    p0, D, C = problems[0], 2, 2
+    g = torch.Generator().manual_seed(3)
+    Zs = [torch.randn((D * C, SIZE, SIZE), generator=g) for _ in range(15)]
+    consts = stack_problem_consts(problems)
+    outs = []
+    for device_index in (False, True):
+        step, aux = est.make_general_sapg_step(p0.model, p0.blur, cfg,
+                                               sigma_fix=p0.sigma_spec().fix, problems=D)
+        its = _Iterations(step, aux, consts, p0.blur, D, C, 4, 13)
+        at = (lambda i: torch.tensor([i])) if device_index else (lambda i: i)
+        X = torch.stack([p.y for p in problems]).repeat_interleave(C, 0)
+        carry = (X, p0.blur.rfft(X), X.clone())
+        for t in range(4):
+            carry = its.warm_iter(carry, at(t), Zs[t])
+        carry = carry + (aux["theta0"].expand(D).clone(), consts["sigma2_init"].clone(),
+                         {k: v.expand(D).clone() for k, v in aux["params0"].items()})
+        for ii in range(2, 13):
+            carry = its.main_iter(carry, at(ii), Zs[ii + 2])
+        outs.append([its.logpi_wu.clone(), its.buf[..., 2:].clone(), carry[0], carry[3],
+                     carry[4], *carry[5].values()])
+        traces = its.traces(range(2, 13))
+        assert traces["theta"].shape == (11, D)
+        np.testing.assert_array_equal(traces["theta"], its.buf[its.names.index("theta"), :, 2:]
+                                      .numpy().T)
     assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
