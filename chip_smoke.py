@@ -11,7 +11,8 @@ Phases:
   1. builds the kernel library from every source under
      semiblind_tv_tpu_torch/csrc/ (one nvcc per source, in parallel).
   2. kernel against plain PyTorch version, same inputs, at 512² (B=1, 16),
-     a ragged shape (B=3, 480×352) and 256² B=40 (five groups of chains):
+     a ragged shape (B=3, 480×352) and 256² B=40 (two groups of chains, three
+     a block: the stacked form, as at 512² B=16):
      kernel A fresh form at tol=0 (25 sweeps) and tol=1e-3, kernel A warm
      form from non-zero duals (10 sweeps, duals returned), kernel B (25
      sweeps).  Bounds: bit-equal fields at tol=0 (max|Δ| = 0), B's TV and
@@ -454,7 +455,8 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
         lam_sapg = torch.tensor(0.02, device=dev)     # λθ at the SAPG operating point
         lam_salsa = torch.tensor(100.0, device=dev)   # SALSA's τ/µ = 10 σ²
         px0, py0 = (noise(0.1) * scales).contiguous(), (noise(0.1) * scales).contiguous()
-        geo = tv_cuda.resident_geometry(B, M, N, tv_cuda.resident_capacity(dev))
+        geo = tv_cuda.resident_geometry(B, M, N, tv_cuda.resident_capacity(dev),
+                                        tv_cuda.resident_stack(dev))
 
         # A2: fresh form
         kf, kst = tv_cuda.chambolle_prox_cuda(g, lam_sapg, 25, tol=0.0, return_state=False)
@@ -486,7 +488,8 @@ def phase2(torch, dev, tv_cuda, fused_step_cuda, wheel, tag):
         stats["B"]["max_abs_err"] = max(stats["B"]["max_abs_err"], e_b)
         code = tv_cuda.barrier_error()
         print(f"phase2 B={B} {M}x{N}: geometry tile {geo.tile}, {geo.tiles} tiles a chain, "
-              f"{geo.chains} chains a group, {geo.groups} groups, grid {geo.grid}; A2 tol=0 "
+              f"{geo.chains} chains a group, {geo.stack} a block, {geo.groups} groups, grid "
+              f"{geo.grid}; A2 tol=0 "
               f"max|Δf| {e_a2:g}; A2 tol=1e-3 iters kernel {it_k} plain {it_p}, last residual "
               f"rel {e_res:.3e}; A1 warm tol=0 max|Δ| f/px/py {e_a1:g}; A1 tol=1e-3 iters "
               f"kernel {wit_k} plain {wit_p}; B max|Δ| xn/proxn {e_b:g}, tv rel {e_tv:.3e} "
@@ -535,14 +538,15 @@ def resident_design(torch, dev, tv_cuda, fused_step_cuda, build, wheel, tag):
     occ = tv_cuda.resident_occupancy(dev)
     ptxas = build.kernel_usage("resident_")
     cap = tv_cuda.resident_capacity(dev)
-    geo = tv_cuda.resident_geometry(16, 512, 512, cap)
+    geo = tv_cuda.resident_geometry(16, 512, 512, cap, tv_cuda.resident_stack(dev))
     print(f"phase2 design resident: ptxas {ptxas}; runtime {occ}; capacity {cap} blocks; "
-          f"512x512 B=16 grid {geo.grid}", flush=True)
+          f"512x512 B=16 grid {geo.grid}, {geo.stack} chains a block, {geo.groups} groups",
+          flush=True)
     check(occ["blocks_per_sm"] == occ["launch_bounds_blocks"],
           f"resident: {occ['blocks_per_sm']} blocks an SM, the design counts on "
           f"{occ['launch_bounds_blocks']}")
-    check(sorted(ptxas) == ["resident_prox", "resident_prox_walk", "resident_step",
-                            "resident_step_walk"]
+    check(sorted(ptxas) == ["resident_prox", "resident_prox_stacked", "resident_prox_walk",
+                            "resident_step", "resident_step_stacked", "resident_step_walk"]
           and all(v["spill_stores"] == v["spill_loads"] == 0 for v in ptxas.values()),
           f"resident spills: ptxas {ptxas}")
     check(geo.grid <= occ["blocks_per_sm"] * occ["sms"], "the 512² B=16 grid exceeds the card")
@@ -1462,7 +1466,7 @@ def phase7_kernels(torch, dev, pv, tv_cuda, build, tag):
     cases = [((1, 512, 512), pv.MODES), ((16, 512, 512), pv.MODES), ((3, 480, 352), pv.MODES),
              ((1, 640, 1152), ("base", "while"))]
     for (B, M, N), modes in cases:
-        geo = tv_cuda.resident_geometry(B, M, N, cap)
+        geo = tv_cuda.resident_geometry(B, M, N, cap, 1)
         g = torch.rand((B, M, N), generator=g0, device=dev) * 255.0
         if B == 3:
             g[0] *= 0.25   # stops earlier at the decisive tol
@@ -1518,8 +1522,8 @@ def phase7_probe(torch, dev, pv, tv_cuda, tag):
     for B in (16, 1):
         g, scal = pv.probe_inputs(B, 512, dev)
         f_base = pv.prox_variant("base", g, scal, 25)[0]
-        groups = -(-B // tv_cuda.resident_geometry(B, 512, 512,
-                                                   tv_cuda.resident_capacity(dev)).chains)
+        groups = -(-B // tv_cuda.resident_geometry(B, 512, 512, tv_cuda.resident_capacity(dev),
+                                                   1).chains)
         row = {}
         for mode in pv.MODES:
             line = pv.probe_mode(mode, g, scal, 25, 100, f_base)

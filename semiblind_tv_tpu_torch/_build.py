@@ -52,11 +52,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sb_num_tiles": ([_I, _I], _I),
     "sb_chambolle_prox": (
-        [_P] * 11 + [_I] * 6 + [_F, _F, _I, _P],
+        [_P] * 11 + [_I] * 7 + [_F, _F, _I, _P],
         _I,
     ),
     "sb_myula_step": (
-        [_P] * 16 + [_I] * 6 + [_F, _F, _I, _I, _P],
+        [_P] * 16 + [_I] * 7 + [_F, _F, _I, _I, _P],
         _I,
     ),
     "sb_resident_occupancy": ([_P], _I),
@@ -72,11 +72,11 @@ _SIGNATURES = {
     "sb_blocked_occupancy": ([_P], _I),
     "sb_blocked_fast_ops": ([_P] * 4 + [_L, _P], _I),
     "sb_myula_prox_tv_dft": (
-        [_P] * 27 + [_L] + [_I] * 6 + [_F, _F, _I, _I, _P],
+        [_P] * 27 + [_L] + [_I] * 7 + [_F, _F, _I, _I, _P],
         _I,
     ),
     "sb_myula_prox_tv_irdft": (
-        [_P] * 22 + [_L] + [_I] * 6 + [_F, _F, _I, _I, _P],
+        [_P] * 22 + [_L] + [_I] * 7 + [_F, _F, _I, _I, _P],
         _I,
     ),
     "sb_dft_products": (

@@ -40,7 +40,8 @@ is one cooperative launch a call on the resident design of kernels A–C
 (`csrc/resident.cuh`, geometry and workspace from `ops/tv_cuda.py`): the
 duals in registers, borders and residual partials through the per-chain
 barrier, the mode a policy of the sweep and of what the barrier carries.
-`launches.J` (profiling.counters) counts the kernel's launches.
+`launches.J` (profiling.counters) counts the kernel's launches and
+`groups.J` their chain groups (one chain a block: J has no stacked form).
 `prox_variant_resident_emulated` replays the kernel's schedule on the CPU
 (chain groups, the walk form, per-tile partials in the kernel's order, the
 exit as each mode takes it).
@@ -221,7 +222,7 @@ def prox_variant_resident_emulated(mode: str, g: torch.Tensor, scal: torch.Tenso
     if g.ndim != 3:
         raise ValueError(f"g must be (B, M, N), got {tuple(g.shape)}")
     B, M, N = g.shape
-    geo = resident_geometry(B, M, N, capacity)
+    geo = resident_geometry(B, M, N, capacity, 1)
     lam, tau, tol = scal[0], scal[1], scal[2]
     resid = mode not in NO_RESIDUAL
     masked = mode in MASKED
@@ -281,7 +282,7 @@ def prox_variant(mode: str, g: torch.Tensor, scal: torch.Tensor,
     lib = load_library()
     B, M, N = g.shape
     with torch.cuda.device(g.device):
-        geo, ws_int, ws_f, stream = resident_launch(g)
+        geo, ws_int, ws_f, stream = resident_launch(g, stack_max=1)
         f = torch.empty_like(g)
         meta = torch.empty((B, 2), dtype=torch.float32, device=g.device)
         code = lib.sb_prox_variant(
@@ -291,6 +292,7 @@ def prox_variant(mode: str, g: torch.Tensor, scal: torch.Tensor,
         )
     check_status(code, f"prox_variant({mode})")
     profiling.counters.add("launches.J")
+    profiling.counters.add("groups.J", geo.groups)
     return f, meta
 
 

@@ -592,8 +592,8 @@ int dft_step(const float* ghat, const float* x, const float* prox, const float* 
              float* xn, float* proxn, float* tv, float* xhat, float* gbuf, float* ybuf,
              float* grad, float* xbuf, float* fbuf, float* ws, int* iters, float* err,
              int* ws_int, float* ws_f, const int* plan, long long ws_floats, int B, int M, int N,
-             int chains, int grid, int n_sweeps, float tau, float tol, int positivity,
-             int strides, void* stream) {
+             int chains, int grid, int stack, int n_sweeps, float tau, float tol,
+             int positivity, int strides, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g(B, M, N, plan);
   if (!g.ok()) return cudaErrorInvalidValue;
@@ -603,7 +603,7 @@ int dft_step(const float* ghat, const float* x, const float* prox, const float* 
   // 3. MYULA with gradF = grad/σ², the prox and the TV: kernel B
   const int code = sb_myula_step(x, prox, grad, z, nullptr, gamma, lam, lam_theta, sigma2,
                                  xn, proxn, tv, iters, err, ws_int, ws_f, B, M, N, chains, grid,
-                                 n_sweeps, tau, tol, positivity, strides, stream);
+                                 stack, n_sweeps, tau, tol, positivity, strides, stream);
   if (code != 0 || xhat == nullptr) return code;
   return forward_products(xn, fac_fwd, cns_t, xbuf, fbuf, xhat, ws, (size_t)ws_floats, plan, g,
                           st);
@@ -618,8 +618,8 @@ extern "C" {
 // ldN) (ops/fused_dft_cuda.py::pack_factors); scratch gbuf, fbuf (2, B·Nhp,
 // ld1), ybuf (2, B·M, 2Nhp), xbuf (2, B·M, ldN), grad (B, M, N), ws
 // (ws_floats), and kernel B's iters/err (B), workspace ws_int/ws_f and
-// geometry chains/grid (tv_kernels.cu::sb_myula_step); plan: host int[11]
-// (the tile plans and the geometry, ops/fused_dft_cuda.py::_host_plan);
+// geometry chains/grid/stack (tv_kernels.cu::sb_myula_step); plan: host
+// int[11] (the tile plans and the geometry, ops/fused_dft_cuda.py::_host_plan);
 // strides: the scalars' chain strides, as sb_myula_step.
 int sb_myula_prox_tv_dft(const float* ghat, const float* x, const float* prox, const float* z,
                          const float* fac_inv, const float* w_t, const float* fac_fwd,
@@ -628,15 +628,15 @@ int sb_myula_prox_tv_dft(const float* ghat, const float* x, const float* prox, c
                          float* tv, float* xhat, float* gbuf, float* ybuf, float* grad,
                          float* xbuf, float* fbuf, float* ws, int* iters, float* err,
                          int* ws_int, float* ws_f, const int* plan, long long ws_floats, int B,
-                         int M, int N, int chains, int grid, int n_sweeps, float tau, float tol,
-                         int positivity, int strides, void* stream) {
+                         int M, int N, int chains, int grid, int stack, int n_sweeps,
+                         float tau, float tol, int positivity, int strides, void* stream) {
   if (fac_fwd == nullptr || cns_t == nullptr || xhat == nullptr || xbuf == nullptr ||
       fbuf == nullptr)
     return cudaErrorInvalidValue;
   return dft_step(ghat, x, prox, z, fac_inv, w_t, fac_fwd, cns_t, gamma, lam, lam_theta, sigma2,
                   xn, proxn, tv, xhat, gbuf, ybuf, grad, xbuf, fbuf, ws, iters, err, ws_int, ws_f,
-                  plan, ws_floats, B, M, N, chains, grid, n_sweeps, tau, tol, positivity,
-                  strides, stream);
+                  plan, ws_floats, B, M, N, chains, grid, stack, n_sweeps, tau, tol,
+                  positivity, strides, stream);
 }
 
 // Kernel E: D's steps 0–3 (the caller takes the forward transform).
@@ -646,12 +646,12 @@ int sb_myula_prox_tv_irdft(const float* ghat, const float* x, const float* prox,
                            const float* sigma2, float* xn, float* proxn, float* tv, float* gbuf,
                            float* ybuf, float* grad, float* ws, int* iters, float* err,
                            int* ws_int, float* ws_f, const int* plan, long long ws_floats, int B,
-                           int M, int N, int chains, int grid, int n_sweeps, float tau,
+                           int M, int N, int chains, int grid, int stack, int n_sweeps, float tau,
                            float tol, int positivity, int strides, void* stream) {
   return dft_step(ghat, x, prox, z, fac_inv, w_t, nullptr, nullptr, gamma, lam, lam_theta,
                   sigma2, xn, proxn, tv, nullptr, gbuf, ybuf, grad, nullptr, nullptr, ws, iters,
-                  err, ws_int, ws_f, plan, ws_floats, B, M, N, chains, grid, n_sweeps, tau, tol,
-                  positivity, strides, stream);
+                  err, ws_int, ws_f, plan, ws_floats, B, M, N, chains, grid, stack, n_sweeps,
+                  tau, tol, positivity, strides, stream);
 }
 
 // D's and E's products alone (timing and the card tests): grad = irfft2(Ĝ)

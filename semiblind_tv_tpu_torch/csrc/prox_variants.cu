@@ -107,7 +107,7 @@ __global__ void __launch_bounds__(BT, MIN_BLOCKS)
 template <int MODE>
 __global__ void __launch_bounds__(BT, MIN_BLOCKS)
     variant_prox_walk(const __grid_constant__ ResidentParams P) {
-  __shared__ Xch x;
+  __shared__ XchWalk x;
   resident_body<false, true, Variant<MODE>>(x, P);
 }
 
@@ -142,6 +142,7 @@ int sb_prox_variant(int mode, const float* g, const float* scal, float* f, float
   P.M = M;
   P.N = N;
   P.C = chains;
+  P.stack = 1;
   P.max_iter = max_iter;
   return launch_resident(FORMS[mode][0], FORMS[mode][1], P, grid,
                          static_cast<cudaStream_t>(stream));

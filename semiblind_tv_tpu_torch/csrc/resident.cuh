@@ -2,10 +2,11 @@
 // B, C and the step inside D/E) and prox_variants.cu (kernel J): the
 // 32 x 64 tile of 256 threads with p1/p2 strips in registers, the border
 // records exchanged through L2, the per-chain arrival barrier that carries
-// the residual partials in a fixed order, the early exit, the chain groups
-// and the walk form.  The design and its reasons are in tv_kernels.cu's
-// header.  The sweep and the chain loop take a policy (SweepPolicy below):
-// kernels A-C instantiate SweepPolicy itself, J one policy a mode.
+// the residual partials in a fixed order, the early exit, the chain groups,
+// the stacked form (several chains a block between two barriers) and the
+// walk form.  The design and its reasons are in tv_kernels.cu's header.
+// The sweep and the chain loop take a policy (SweepPolicy below): kernels
+// A-C instantiate SweepPolicy itself, J one policy a mode.
 
 #pragma once
 
@@ -48,6 +49,7 @@ struct ResidentParams {
   int S;   // tiles of the chains of a group, C·T: border records and partials a parity
   int lam_s, gamma_s, lam_step_s, sigma2_s;   // the scalars' chain strides (0 or 1)
   float tau, tol;
+  int stack;   // chains a block sweeps between two barriers (stacked form), else 1
 };
 
 namespace {
@@ -64,6 +66,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr long long SPIN_LIMIT = 1LL << 25;
 constexpr int ERR_TIMEOUT = 1;      // workspace error code: a barrier gave up
 constexpr int PART_PER = 8;         // partials a thread loads at once
+constexpr int KMAX = 3;             // chains a block of the stacked form holds, at most
 
 static_assert(R % 4 == 0 && R <= 32, "a strip is float4 rows of at most 32 pixels");
 static_assert(TW + TH <= BT, "one thread a halo u of the row below and column right");
@@ -79,9 +82,11 @@ constexpr int HALO = TW + TH + TW + (TW + 1) + (TH + 1) + TH;
 constexpr int HALO_PER = (HALO + BT - 1) / BT;   // halo elements a thread
 
 // Workspace ints: the error code, the exit counter, then one arrival
-// counter per chain slot.  Workspace floats: border records [2][S], then
-// residual partials [2][S], then TV partials [2][S], then (walk form) the
-// duals p1 and p2 of one chain, M·N floats each.
+// counter per chain slot (a slot: the T blocks of one chain, or of the
+// stacked form's chains of a tile).  Workspace floats: border records
+// [2][S], then residual partials [2][S], then TV partials [2][S], then (walk
+// form) the duals p1 and p2 of one chain, M·N floats each.  The stacked
+// form's chain k of block i takes record and partial k·grid + i.
 enum { W_ERROR, W_EXIT, W_SLOTS };
 
 // The image-boundary form of div p and ∇u: the branches' selects on the
@@ -190,8 +195,12 @@ struct Xch {
   // the pixel's 2·(row·N + col) + (0: p1, 1: p2), hdst the float offset of
   // its slot in this struct (-1: none)
   int hrec[HALO_PER][BT], hpix[HALO_PER][BT], hdst[HALO_PER][BT];
-  // the walk form's chain: g (or xn), the first duals (null: zero) and the
-  // duals between sweeps, read back through `fresh` at each use
+};
+
+// The walk form's exchange: Xch and the chain's g (or xn), the first duals
+// (null: zero) and the duals between sweeps, read back through `fresh` at
+// each use.
+struct XchWalk : Xch {
   const float* wg;
   const float* wp1f;
   const float* wp2f;
@@ -201,6 +210,33 @@ struct Xch {
   // barriers so far, the sweeps run and the last residual
   int wsw[BT], wtile[BT], warr[BT], wn[BT];
   float we[BT];
+};
+
+// The stacked form's chains of a block, in dynamic shared memory beside Xch
+// (chain k = 0 .. stack−1): the duals of each strip, p[k][0] p1 and p[k][1]
+// p2, loaded into the sweep's registers and stored back around each sweep;
+// g/λ of the strip (chain 0's is Xch::gl); the halo elements gathered after
+// each barrier (element e of halo_table's order) and the g/λ halo below and
+// to the right (thread t < TW + TH, in bot_gl/rgt_gl's order); the warp sums
+// of the residual and TV partials and of the chain's totals; thread 0's
+// sweeps run and last residual; and the loop's state, thread 0's to write:
+// the group's chains of the block (−1: none), the block's chain slot and
+// the slots of the launch, its slot's barriers so far and before the group,
+// and the next group's first chain, read back where used (`fresh`), so that
+// no register holds them across a sweep.  The halo and g/λ halo go into
+// Xch's slots before the chain's sweep, so the sweep is the one-chain
+// form's.
+constexpr int GLH = TW + TH;
+struct Stack {
+  float p[KMAX][2][R][BT];
+  float gl[KMAX - 1][R][BT];
+  float halo[KMAX][HALO];
+  float glh[KMAX][GLH];
+  float wpart[KMAX][NW], wtv[KMAX][NW];
+  float wsum[KMAX][2][NW];
+  int n[KMAX];
+  float e[KMAX];
+  int chain[KMAX], slot, slots, arr, arr0, next;
 };
 
 // v read from shared memory at this point: a volatile load, so that the
@@ -247,9 +283,12 @@ struct StepIn {
   }
   __device__ float at(int row, int col) const {
     const size_t q = (size_t)row * N + col;
-    const float xv = x[q];
-    const float v = xv + div_rn_exact(gamma * (prox[q] - xv), lam) -
-                    gamma * div_rn_exact(grad[q], sigma2) + s2g * noise(q);
+    return at_of(q, x[q], prox[q], grad[q], z != nullptr ? z[q] : 0.f);
+  }
+  // at() from the pixel's inputs, loaded beforehand (zv: z's, when given)
+  __device__ float at_of(size_t q, float xv, float pv, float gv, float zv) const {
+    const float v = xv + div_rn_exact(gamma * (pv - xv), lam) - gamma * div_rn_exact(gv, sigma2) +
+                    s2g * (z != nullptr ? zv : noise(q));
     return positivity ? fabsf(v) : v;
   }
 };
@@ -412,21 +451,25 @@ __device__ __forceinline__ float block_part(const float* wp) {
 // counter with release semantics and spins until `target` arrivals.  A spin
 // that gives up writes the error code and traps: the launch fails, and the
 // caller's next synchronisation raises.
+__device__ __forceinline__ void arrive_and_wait(const ResidentParams& P, int* ctr, int target) {
+  red_release(ctr);
+  long long polls = 0;
+  while (ld_acquire(ctr) < target) {
+    if ((++polls & 1023) == 0 && polls > SPIN_LIMIT) {
+      atomicExch(P.ws_int + W_ERROR, ERR_TIMEOUT);
+      __threadfence_system();
+      __trap();
+    }
+  }
+}
+
 __device__ __forceinline__ void slot_barrier(Xch& x, const ResidentParams& P, int* ctr,
                                              int target, float* part_slot, float* tv_slot) {
   __syncthreads();
   if (threadIdx.x == 0) {
     if (part_slot != nullptr) *part_slot = block_part(x.wpart);
     if (tv_slot != nullptr) *tv_slot = block_part(x.wtv);
-    red_release(ctr);
-    long long polls = 0;
-    while (ld_acquire(ctr) < target) {
-      if ((++polls & 1023) == 0 && polls > SPIN_LIMIT) {
-        atomicExch(P.ws_int + W_ERROR, ERR_TIMEOUT);
-        __threadfence_system();
-        __trap();
-      }
-    }
+    arrive_and_wait(P, ctr, target);
   }
   __syncthreads();
 }
@@ -546,11 +589,14 @@ __device__ __forceinline__ float grad_of(float nb, float u, bool last) {
 // residual sum over its valid pixels when `check` (else 0).  The
 // neighbours' duals are in the exchange (gather); the strip ends of p are
 // published again at the end.  `keep` (a masked policy's stopped chain)
-// computes the sweep and keeps the old duals.
+// computes the sweep and keeps the old duals.  g/λ is x.gl, or `gl` when
+// given (a stacked chain's).
 template <class Pol>
 __device__ __forceinline__ float sweep(Xch& x, const Pos& ps, const ResidentParams& P, float (&p1)[R],
-                                       float (&p2)[R], bool check = true, bool keep = false) {
+                                       float (&p2)[R], bool check = true, bool keep = false,
+                                       const float (*gl)[BT] = nullptr) {
   constexpr bool BS = Pol::kBf16Dual;
+  const float(*glam)[BT] = gl != nullptr ? gl : x.gl;
   constexpr bool BA = Pol::kBf16Arith;
   const int col0 = ps.tx0 + ps.c;
   float u[R];
@@ -566,7 +612,7 @@ __device__ __forceinline__ float sweep(Xch& x, const Pos& ps, const ResidentPara
       const float sh = __shfl_up_sync(FULL, p2[i], 1);
       const float left = ps.lane == 0 ? ev[q] : sh;
       u[i] = u_of<Pol>(p1[i], above, p2[i], left, ps.ty0 + ps.r0 + i == 0, bit(ps.m_last, i),
-                       col0 == 0, ps.c_last, x.gl[i][threadIdx.x]);
+                       col0 == 0, ps.c_last, glam[i][threadIdx.x]);
     }
   }
   x.urow[ps.wy][ps.c] = u[0];
@@ -687,8 +733,10 @@ __device__ __forceinline__ float sweep(Xch& x, const Pos& ps, const ResidentPara
 // into x.gl; the halo xn below and to the right of the tile, divided by λθ,
 // into bot_gl/rgt_gl.  The TV's up and left neighbours across the tile's
 // edge (wrapping at the image's) are computed again from the inputs, so no
-// barrier is needed.  The strip loops are not unrolled: the update and its
-// noise are long, and the sweeps need the registers.
+// barrier is needed.  The strip's inputs are loaded half a strip at once, so
+// that the loads wait on memory twice, not once a row (the stores to xn may
+// alias them); the TV's strip loops are not unrolled, as the sweeps need the
+// registers.
 __device__ __forceinline__ void step_prologue(Xch& x, const Pos& ps, const ResidentParams& P, int b,
                                               float lam) {
   const size_t off = (size_t)b * P.M * P.N;
@@ -706,15 +754,29 @@ __device__ __forceinline__ void step_prologue(Xch& x, const Pos& ps, const Resid
   in.N = P.N;
   in.positivity = P.positivity;
   const int t = threadIdx.x, col = ps.tx0 + ps.c;
-#pragma unroll 1
-  for (int i = 0; i < R; ++i) {
-    const int row = ps.ty0 + ps.r0 + i;
-    float v = 0.f;
-    if (bit(ps.m_valid, i)) {
-      v = in.at(row, col);
-      P.xn[off + (size_t)row * P.N + col] = v;
+  // the strip in two halves, each half's inputs loaded at once
+#pragma unroll
+  for (int i0 = 0; i0 < R; i0 += R / 2) {
+    float xv[R / 2], pv[R / 2], gv[R / 2], zv[R / 2];
+#pragma unroll
+    for (int j = 0; j < R / 2; ++j) {
+      const bool ok = bit(ps.m_valid, i0 + j);
+      const size_t q = (size_t)(ps.ty0 + ps.r0 + i0 + j) * P.N + col;
+      xv[j] = ok ? in.x[q] : 0.f;
+      pv[j] = ok ? in.prox[q] : 0.f;
+      gv[j] = ok ? in.grad[q] : 0.f;
+      zv[j] = (ok && in.z != nullptr) ? in.z[q] : 0.f;
     }
-    x.gl[i][t] = v;
+#pragma unroll
+    for (int j = 0; j < R / 2; ++j) {
+      const size_t q = (size_t)(ps.ty0 + ps.r0 + i0 + j) * P.N + col;
+      float v = 0.f;
+      if (bit(ps.m_valid, i0 + j)) {
+        v = in.at_of(q, xv[j], pv[j], gv[j], zv[j]);
+        P.xn[off + q] = v;
+      }
+      x.gl[i0 + j][t] = v;
+    }
   }
   // the halo: up (wrapping), left (wrapping), below, right
   for (int e = t; e < 2 * (TW + TH); e += BT) {
@@ -803,11 +865,16 @@ __device__ __forceinline__ void load_duals(const Pos& ps, const ResidentParams& 
 
 // f = g − λ·div p on the strip (proxn = xn − λθ·div p), and the duals to
 // px_out/py_out when given; the exchange holds the final duals' halo
-// (gather).
+// (gather).  The strip's g is loaded before the first store (the stores to f
+// may alias it, so the loads would otherwise wait one a row).
 __device__ __forceinline__ void assemble(Xch& x, const Pos& ps, const ResidentParams& P,
                                          size_t off, const float* gsrc, float lam,
                                          const float (&p1)[R], const float (&p2)[R]) {
   const int col = ps.tx0 + ps.c;
+  float gv[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    gv[i] = bit(ps.m_valid, i) ? __ldcg(gsrc + (size_t)(ps.ty0 + ps.r0 + i) * P.N + col) : 0.f;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const float above = i == 0 ? x.xrow[ps.wy][ps.c] : p1[i > 0 ? i - 1 : 0];
@@ -817,7 +884,7 @@ __device__ __forceinline__ void assemble(Xch& x, const Pos& ps, const ResidentPa
       const float a = bit(ps.m_last, i) ? -p1[i] : p1[i] - above;
       const float bb = ps.c_last ? -p2[i] : p2[i] - left;
       const size_t pix = (size_t)(ps.ty0 + ps.r0 + i) * P.N + col;
-      P.f[off + pix] = __ldcg(gsrc + pix) - lam * (a + bb);
+      P.f[off + pix] = gv[i] - lam * (a + bb);
       if (P.px_out != nullptr) {
         P.px_out[off + pix] = p1[i];
         P.py_out[off + pix] = p2[i];
@@ -897,7 +964,7 @@ __device__ __forceinline__ void run_chain(Xch& x, const Pos& ps, const ResidentP
 // sweep, which then reads the neighbours' xn.  The chain's pointers live in
 // the exchange (`fresh`): with them in registers the sweep spilled.
 template <bool STEP, class Pol>
-__device__ __forceinline__ void run_chain_walk(Xch& x, const ResidentParams& P, int b,
+__device__ __forceinline__ void run_chain_walk(XchWalk& x, const ResidentParams& P, int b,
                                                int& arrivals) {
   using Rec = typename Pol::Rec;
   const int t = threadIdx.x;
@@ -1002,10 +1069,255 @@ __device__ __forceinline__ void run_chain_walk(Xch& x, const ResidentParams& P, 
   if (blockIdx.x == 0 && t == 0) Pol::finish(P, b, n, e);
 }
 
-template <bool STEP, bool WALK, class Pol = SweepPolicy>
-__device__ __forceinline__ void resident_body(Xch& x, const ResidentParams& P) {
+// The stacked form's chain k: its strip's duals out of st into (p1, p2) and
+// its strip ends published, its halo and g/λ halo into the exchange's slots:
+// the exchange as the one-chain form has it before a sweep or the assembly.
+// Ends with a barrier.
+__device__ __forceinline__ void stacked_exchange(Xch& x, Stack& st, const Pos& ps, int k,
+                                                 float (&p1)[R], float (&p2)[R]) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    p1[i] = st.p[k][0][i][t];
+    p2[i] = st.p[k][1][i][t];
+  }
+  publish_ends(x, ps, p1, p2);
+#pragma unroll
+  for (int j = 0; j < HALO_PER; ++j) {
+    const int e = t + j * BT;
+    if (e < HALO) reinterpret_cast<float*>(&x)[x.hdst[j][t]] = st.halo[k][e];
+  }
+  if (t < TW) x.bot_gl[t] = st.glh[k][t];
+  else if (t < GLH) x.rgt_gl[t - TW] = st.glh[k][t];
+  __syncthreads();
+}
+
+// After a stacked barrier of parity q, for each chain k of the block in
+// `live`: its halo from the border records into st.halo[k] (halos), and its
+// totals of the T residual partials (resid) and TV partials (tv) into
+// tot[k], each in gather's order; the loads of all chains issued together.
+// Ends with a barrier.
+template <class Rec>
+__device__ __forceinline__ void gather_stacked(Xch& x, Stack& st, const Pos& ps,
+                                               const ResidentParams& P, int q, uint32_t live,
+                                               bool halos, bool resid, bool tv,
+                                               float2 (&tot)[KMAX]) {
+  const int t = threadIdx.x;
+  const int cs = gridDim.x;   // from chain k of a block to chain k + 1
+  const Rec* rec = records<Rec>(P, q);
+  float hv[KMAX][HALO_PER];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+#pragma unroll
+    for (int j = 0; j < HALO_PER; ++j) {
+      const int r = x.hrec[j][t];
+      hv[k][j] = (halos && bit(live, k) && r >= 0) ? rec_ld(rec + k * cs * BORDER + r) : 0.f;
+    }
+  }
+  const int first = blockIdx.x - blockIdx.x % P.T;   // chain 0's first tile
+  const float* rp = partials(P, 0, q) + first;
+  const float* tp = partials(P, 1, q) + first;
+  float a[KMAX], c[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) a[k] = c[k] = 0.f;
+  for (int i0 = 0; i0 < P.T; i0 += BT) {
+    const int i = i0 + t;
+    float va[KMAX], vc[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      const bool on = bit(live, k) && i < P.T;
+      va[k] = (resid && on) ? __ldcg(rp + k * cs + i) : 0.f;
+      vc[k] = (tv && on) ? __ldcg(tp + k * cs + i) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      a[k] = a[k] + va[k];
+      c[k] = c[k] + vc[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (!bit(live, k)) continue;
+    for (int o = 16; o > 0; o >>= 1) {
+      if (resid) a[k] += __shfl_down_sync(FULL, a[k], o);
+      if (tv) c[k] += __shfl_down_sync(FULL, c[k], o);
+    }
+    if (ps.lane == 0) {
+      st.wsum[k][0][ps.w] = a[k];
+      st.wsum[k][1][ps.w] = c[k];
+    }
+#pragma unroll
+    for (int j = 0; j < HALO_PER; ++j) {
+      const int e = t + j * BT;
+      if (halos && e < HALO) st.halo[k][e] = hv[k][j];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+    tot[k] = make_float2(block_part(st.wsum[k][0]), block_part(st.wsum[k][1]));
+}
+
+// Stacked form: the chains k = 0 .. stack−1 of the block's slot in the group
+// from b0 (chain b0 + k·slots + slot, those below B) on its tile, each
+// chain's duals in st between its sweeps.  A sweep round sweeps each running
+// chain in turn, then one barrier carries the partials of them all (and, on
+// the first, the step forms' TV partials; with no sweep, those alone), and
+// one gather takes their halos and totals.  Each chain leaves on its own
+// residual; a chain that has left takes no further sweep and keeps its
+// duals, and the block sweeps while any of its chains runs.  Every chain's
+// operations and sums are the resident form's (run_chain), in its order.
+template <bool STEP, class Pol>
+__device__ __forceinline__ void run_stack(Xch& x, Stack& st, const Pos& ps,
+                                          const ResidentParams& P) {
+  using Rec = typename Pol::Rec;
+  static_assert(Pol::kResidual == 1 && Pol::kEvery == 1 && !Pol::kMasked,
+                "the stacked form checks every sweep and leaves on it");
+  const int t = threadIdx.x;
+  __syncthreads();   // the last group's chains are read no more
+  if (t == 0) {
+    const int b0 = st.next;
+    for (int k = 0; k < KMAX; ++k) {
+      const int b = b0 + k * st.slots + st.slot;
+      st.chain[k] = (k < P.stack && b < P.B) ? b : -1;
+      st.n[k] = 0;
+      st.e[k] = INFINITY;
+    }
+    st.arr0 = st.arr;
+    st.next = b0 + P.C;
+  }
+  __syncthreads();
+
+  // each chain's g/λ, duals and first halo into st, the last chain first:
+  // chain 0's g/λ stays in x.gl
+  uint32_t live = 0u;
+  for (int k = KMAX - 1; k >= 0; --k) {
+    const int b = fresh(st.chain[k]);
+    if (b < 0) continue;
+    live |= 1u << k;
+    const size_t off = (size_t)b * P.M * P.N;
+    const float lam = P.lam[b * P.lam_s];
+    float p1[R], p2[R];
+    if (STEP) {
+      step_prologue(x, ps, P, b, lam);
+#pragma unroll
+      for (int i = 0; i < R; ++i) p1[i] = p2[i] = 0.f;
+      if (t < NW) st.wtv[k][t] = x.wtv[t];
+    } else {
+      load_glam<Pol::kBf16Dual>(x, ps, P, P.g + off, lam);
+      load_duals(ps, P, P.px_in != nullptr ? P.px_in + off : nullptr,
+                 P.py_in != nullptr ? P.py_in + off : nullptr, p1, p2);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      st.p[k][0][i][t] = p1[i];
+      st.p[k][1][i][t] = p2[i];
+      if (k > 0) st.gl[k - 1][i][t] = x.gl[i][t];
+    }
+    if (t < TW) st.glh[k][t] = x.bot_gl[t];
+    else if (t < GLH) st.glh[k][t] = x.rgt_gl[t - TW];
+    // the first halo, from the call's first duals (null: zero)
+#pragma unroll
+    for (int j = 0; j < HALO_PER; ++j) {
+      const int e = t + j * BT, r = x.hrec[j][t], hp = x.hpix[j][t];
+      if (e < HALO) {
+        const float* src = STEP ? nullptr : ((hp & 1) ? P.py_in : P.px_in);
+        st.halo[k][e] = (r >= 0 && src != nullptr) ? src[off + (hp >> 1)] : 0.f;
+      }
+    }
+    __syncthreads();   // the next chain's set-up rewrites the exchange
+  }
+
+  // the rounds, one a barrier since the group's first; the step forms with
+  // no sweep take one for the TV's barrier
+  const int rounds = (STEP && P.max_iter == 0) ? 1 : P.max_iter;
+  while (live != 0u && fresh(st.arr) - fresh(st.arr0) < rounds) {
+    if (fresh(st.arr) - fresh(st.arr0) < P.max_iter) {
+      for (int k = 0; k < KMAX; ++k) {
+        if (!bit(live, k)) continue;
+        float p1[R], p2[R];
+        stacked_exchange(x, st, ps, k, p1, p2);
+        const float acc = sweep<Pol>(x, ps, P, p1, p2, true, false, k == 0 ? x.gl : st.gl[k - 1]);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          st.p[k][0][i][t] = p1[i];
+          st.p[k][1][i][t] = p2[i];
+        }
+        const int i = k * gridDim.x + blockIdx.x;   // the chain's record and partial
+        publish_border(ps, records<Rec>(P, fresh(st.arr) & 1) + i * BORDER, p1, p2);
+        warp_part(acc, st.wpart[k], ps);
+      }
+    }
+    // one barrier for the block's chains, carrying their partials; the
+    // round's number n from 1 read again after the sweeps
+    const int par = fresh(st.arr) & 1, n = fresh(st.arr) + 1 - fresh(st.arr0);
+    const bool sweeps = n <= P.max_iter, first_tv = STEP && n == 1;
+    __syncthreads();
+    if (t == 0) {
+      for (int k = 0; k < KMAX; ++k) {
+        if (!bit(live, k)) continue;
+        const int i = k * gridDim.x + blockIdx.x;
+        if (sweeps) partials(P, 0, par)[i] = block_part(st.wpart[k]);
+        if (first_tv) partials(P, 1, par)[i] = block_part(st.wtv[k]);
+      }
+      arrive_and_wait(P, P.ws_int + W_SLOTS + st.slot, (st.arr + 1) * P.K);
+      ++st.arr;
+    }
+    __syncthreads();
+    float2 tot[KMAX];
+    gather_stacked<Rec>(x, st, ps, P, par, live, sweeps, sweeps, first_tv, tot);
+    if (first_tv && t == 0 && blockIdx.x % P.T == 0) {
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k)
+        if (bit(live, k)) P.tv[st.chain[k]] = tot[k].y;
+    }
+    if (sweeps) {
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        if (!bit(live, k)) continue;
+        const float e = sqrt_rn_exact(tot[k].x);
+        if (t == 0) {
+          st.n[k] = n;
+          st.e[k] = e;
+        }
+        if (!(e > Pol::tol(P))) live &= ~(1u << k);
+      }
+    }
+  }
+
+  // the thread's place again, from the exchange: worked out from the
+  // sweeps' ps, its rows would stay in registers across them
+  const Pos pa = place(P, blockIdx.x - fresh(st.slot) * P.T);
+  for (int k = 0; k < KMAX; ++k) {
+    const int b = fresh(st.chain[k]);
+    if (b < 0) continue;
+    const size_t off = (size_t)b * P.M * P.N;
+    float p1[R], p2[R];
+    stacked_exchange(x, st, pa, k, p1, p2);
+    assemble(x, pa, P, off, (STEP ? P.xn : P.g) + off, P.lam[b * P.lam_s], p1, p2);
+    if (t == 0 && blockIdx.x % P.T == 0) Pol::finish(P, b, st.n[k], st.e[k]);
+    __syncthreads();   // the exchange is rewritten by the next chain
+  }
+}
+
+// The last block out resets the arrival counters of the call's `slots`
+// chain slots and the exit counter for the next call.
+__device__ __forceinline__ void leave(const ResidentParams& P, int slots) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(P.ws_int + W_EXIT, 1) == (int)gridDim.x - 1) {
+      for (int s = 0; s < slots; ++s) P.ws_int[W_SLOTS + s] = 0;
+      P.ws_int[W_EXIT] = 0;
+      __threadfence();
+    }
+  }
+}
+
+template <bool STEP, bool WALK, class Pol = SweepPolicy, class X>
+__device__ __forceinline__ void resident_body(X& x, const ResidentParams& P) {
   int arrivals = 0;
-  if (WALK) {
+  if constexpr (WALK) {
     for (int b = 0; b < P.B; ++b) run_chain_walk<STEP, Pol>(x, P, b, arrivals);
   } else {
     const int slot = blockIdx.x / P.T, tile = blockIdx.x % P.T;
@@ -1016,49 +1328,65 @@ __device__ __forceinline__ void resident_body(Xch& x, const ResidentParams& P) {
       if (b < P.B) run_chain<STEP, Pol>(x, ps, P, b, slot, tile, arrivals);
     }
   }
-  // the last block out resets the arrival and exit counters for the next call
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    if (atomicAdd(P.ws_int + W_EXIT, 1) == (int)gridDim.x - 1) {
-      for (int s = 0; s < P.C; ++s) P.ws_int[W_SLOTS + s] = 0;
-      P.ws_int[W_EXIT] = 0;
-      __threadfence();
-    }
-  }
+  leave(P, P.C);
 }
 
-// Checks the geometry (chains a group, grid) against the image and
-// launches the call cooperatively: the resident form when the grid is C·T,
-// the walk form when it is one chain's K < T blocks.  A launch that CUDA
-// refuses returns its error; nothing falls back.
+// The stacked form's launch: groups of C chains, C/stack slots of T blocks,
+// block i (slot i / T) sweeping tile i mod T of its slot's `stack` chains.
+template <bool STEP, class Pol = SweepPolicy>
+__device__ __forceinline__ void stacked_body(Xch& x, Stack& st, const ResidentParams& P) {
+  const int slot = blockIdx.x / P.T;
+  const Pos ps = place(P, blockIdx.x % P.T);
+  halo_table(x, ps, P, slot * P.T);
+  if (threadIdx.x == 0) {
+    st.slot = slot;
+    st.slots = P.C / P.stack;
+    st.arr = 0;
+    st.next = 0;
+  }
+  __syncthreads();
+  while (fresh(st.next) + fresh(st.slot) < P.B) run_stack<STEP, Pol>(x, st, ps, P);
+  leave(P, P.C / P.stack);
+}
+
+// Checks the geometry (chains a group, grid, stack) against the image and
+// launches the call cooperatively: the resident form when the grid is C·T
+// (stack 1), the stacked form when it is C/stack slots of T blocks with
+// stack > 1 (`stacked`, with sizeof(Stack) bytes of dynamic shared memory,
+// which the caller has allowed), the walk form when it is one chain's K < T
+// blocks.  A launch that CUDA refuses returns its error; nothing falls back.
 inline cudaError_t launch_resident(const void* resident, const void* walk, ResidentParams& P,
-                                   int grid, cudaStream_t st) {
+                                   int grid, cudaStream_t st, const void* stacked = nullptr) {
   if (P.B < 1 || P.M < 2 || P.N < 2 || P.max_iter < 0) return cudaErrorInvalidValue;
   P.TX = (P.N + TW - 1) / TW;
   P.T = P.TX * ((P.M + TH - 1) / TH);
   const bool is_walk = P.C == 1 && grid >= 1 && grid < P.T;
-  if (P.C < 1 || P.C > P.B || (!is_walk && grid != P.C * P.T)) return cudaErrorInvalidValue;
+  if (P.stack < 1 || P.stack > (stacked != nullptr ? KMAX : 1) || P.C % P.stack != 0)
+    return cudaErrorInvalidValue;
+  const int slots = P.C / P.stack;
+  if (slots < 1 || slots > P.B || (!is_walk && grid != slots * P.T)) return cudaErrorInvalidValue;
   P.K = is_walk ? grid : P.T;
   P.S = P.C * P.T;
+  const bool stacks = P.stack > 1;
   void* args[] = {&P};
-  const cudaError_t e =
-      cudaLaunchCooperativeKernel(is_walk ? walk : resident, dim3(grid), dim3(BT), args, 0, st);
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      is_walk ? walk : (stacks ? stacked : resident), dim3(grid), dim3(BT), args,
+      stacks ? sizeof(Stack) : 0, st);
   if (e != cudaSuccess) cudaGetLastError();   // a refused launch leaves no error behind
   return e;
 }
 
-// The occupancy of kernels fns[0..n): out = {active blocks per SM (the
-// smallest), registers a thread (the largest), local (spill) bytes a thread
-// (the largest)}.
-inline cudaError_t occupancy_of(const void* const* fns, int n, int* out) {
+// The occupancy of kernels fns[0..n) with `dyn` bytes of dynamic shared
+// memory: out = {active blocks per SM (the smallest), registers a thread
+// (the largest), local (spill) bytes a thread (the largest)}.
+inline cudaError_t occupancy_of(const void* const* fns, int n, int* out, size_t dyn = 0) {
   int blocks = 1 << 30, regs = 0, local = 0;
   for (int k = 0; k < n; ++k) {
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, fns[k]);
     if (e != cudaSuccess) return e;
     int nb = 0;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fns[k], BT, 0)) != cudaSuccess)
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fns[k], BT, dyn)) != cudaSuccess)
       return e;
     blocks = nb < blocks ? nb : blocks;
     regs = a.numRegs > regs ? a.numRegs : regs;

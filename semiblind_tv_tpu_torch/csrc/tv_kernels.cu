@@ -90,6 +90,22 @@
 //     barrier of its own for the step forms' TV.  Partials and border
 //     records are kept a tile, so the sums and the fields are those of the
 //     resident form.
+//     The stacked form takes the chains beyond those the card holds at one
+//     a block: block k holds tile k mod T of up to KMAX = 3 chains
+//     (resident_prox_stacked, resident_step_stacked), so that 16 chains at
+//     512² run in 3 groups instead of 8.  Only one chain's strip fits the
+//     registers, so each chain's duals and g/λ live in dynamic shared
+//     memory (resident.cuh's Stack, 70.6 KB beside Xch's 43.5 KB, still two
+//     blocks an SM) and a sweep round loads each running chain's strip,
+//     sweeps it and stores it back, then one barrier carries the partials
+//     of all of them and one gather takes all their halos and sums.  Each
+//     chain keeps its own records, partials, sums and exit; a chain that
+//     has left is not swept again.  The set-up loads each chain's inputs
+//     half a strip at once (its registers are free there).  A chain's
+//     operations and sums are the one-chain form's, so every output is the
+//     same to the bit.  Why it is not more: a sweep of a chain's tile is
+//     ~3 µs of instructions (the exact divides and roots), of which the
+//     barrier and gather it no longer waits on are under a third.
 //  6. No per-pixel edge branches: which of a thread's rows is the image's
 //     last or inside the image is a bit mask worked out once a call, and the
 //     stencil is straight-line code with selects.  The divides take
@@ -108,6 +124,8 @@
 // machinery of points 1-6 lives in resident.cuh, which kernel J
 // (prox_variants.cu) shares; the four forms below take its SweepPolicy.
 
+#include <atomic>
+
 #include "resident.cuh"
 
 // The four forms, with C names so that ptxas's report and the profiler name
@@ -124,13 +142,27 @@ __global__ void __launch_bounds__(BT, MIN_BLOCKS) resident_step(const __grid_con
 }
 __global__ void __launch_bounds__(BT, MIN_BLOCKS)
     resident_prox_walk(const __grid_constant__ ResidentParams P) {
-  __shared__ Xch x;
+  __shared__ XchWalk x;
   resident_body<false, true>(x, P);
 }
 __global__ void __launch_bounds__(BT, MIN_BLOCKS)
     resident_step_walk(const __grid_constant__ ResidentParams P) {
-  __shared__ Xch x;
+  __shared__ XchWalk x;
   resident_body<true, true>(x, P);
+}
+// The stacked forms: up to KMAX chains a block between two barriers, their
+// duals and g/λ in dynamic shared memory (resident.cuh's Stack).
+__global__ void __launch_bounds__(BT, MIN_BLOCKS)
+    resident_prox_stacked(const __grid_constant__ ResidentParams P) {
+  __shared__ Xch x;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  stacked_body<false>(x, *reinterpret_cast<Stack*>(dyn), P);
+}
+__global__ void __launch_bounds__(BT, MIN_BLOCKS)
+    resident_step_stacked(const __grid_constant__ ResidentParams P) {
+  __shared__ Xch x;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  stacked_body<true>(x, *reinterpret_cast<Stack*>(dyn), P);
 }
 }  // extern "C"
 
@@ -138,11 +170,39 @@ namespace {
 
 const void* const FORMS[4] = {(const void*)resident_prox, (const void*)resident_step,
                               (const void*)resident_prox_walk, (const void*)resident_step_walk};
+const void* const STACKED[2] = {(const void*)resident_prox_stacked,
+                                (const void*)resident_step_stacked};
+
+// Allows the stacked forms their dynamic shared memory (above the 48 KB
+// default) and the largest shared-memory carveout on the current device,
+// once a device: at the first occupancy query or launch, so that no launch
+// captured in a CUDA graph sets it.
+cudaError_t allow_stacked() {
+  static std::atomic<unsigned long long> ready{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (ready.load() & bit) return cudaSuccess;
+  for (const void* fn : STACKED) {
+    if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)sizeof(Stack))) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+      return e;
+  }
+  ready.fetch_or(bit);
+  return cudaSuccess;
+}
 
 // The prox (STEP false) or the step forms' launch (resident.cuh).
 template <bool STEP>
 cudaError_t launch(ResidentParams& P, int grid, cudaStream_t st) {
-  return launch_resident(FORMS[STEP ? 1 : 0], FORMS[STEP ? 3 : 2], P, grid, st);
+  if (P.stack > 1) {
+    const cudaError_t e = allow_stacked();
+    if (e != cudaSuccess) return e;
+  }
+  return launch_resident(FORMS[STEP ? 1 : 0], FORMS[STEP ? 3 : 2], P, grid, st, STACKED[STEP]);
 }
 
 // The kernel's exact quotient and root elementwise: q = div_rn_exact(a, b),
@@ -170,14 +230,16 @@ int sb_num_tiles(int M, int N) { return ((N + TX - 1) / TX) * ((M + TY - 1) / TY
 // (B,) get each chain's sweeps and last residual.  ws_int: 2 + chains ints
 // and ws_f: 2·S·(BORDER + 2) floats of workspace with S = chains × tiles a
 // chain, and 2·M·N more for the walk form; the ints zero before the first
-// call (the kernel leaves them zero).  chains: chains a group; grid: chains
-// × tiles a chain (resident form), or fewer blocks than one chain's tiles
-// with chains = 1 (walk form) (ops/tv_cuda.py::resident_geometry).
-// strides: bit 0 set, lam is a (B,) vector, one λ a chain; clear, one value.
+// call (the kernel leaves them zero).  chains: chains a group; stack: the
+// chains a block sweeps between two barriers (1, or up to KMAX in the
+// stacked form); grid: chains / stack × tiles a chain (resident and stacked
+// forms), or fewer blocks than one chain's tiles with chains = 1 (walk form)
+// (ops/tv_cuda.py::resident_geometry).  strides: bit 0 set, lam is a (B,)
+// vector, one λ a chain; clear, one value.
 int sb_chambolle_prox(const float* g, const float* lam, const float* px_in, const float* py_in,
                       float* f, float* px_out, float* py_out, int* iters, float* err,
                       int* ws_int, float* ws_f, int B, int M, int N, int chains, int grid,
-                      int max_iter, float tau, float tol, int strides, void* stream) {
+                      int stack, int max_iter, float tau, float tol, int strides, void* stream) {
   ResidentParams P{};
   P.g = g;
   P.lam = lam;
@@ -195,6 +257,7 @@ int sb_chambolle_prox(const float* g, const float* lam, const float* px_in, cons
   P.M = M;
   P.N = N;
   P.C = chains;
+  P.stack = stack;
   P.max_iter = max_iter;
   P.tau = tau;
   P.tol = tol;
@@ -213,7 +276,7 @@ int sb_myula_step(const float* x, const float* prox, const float* grad, const fl
                   const int* seeds, const float* gamma, const float* lam,
                   const float* lam_theta, const float* sigma2, float* xn, float* proxn,
                   float* tv, int* iters, float* err, int* ws_int, float* ws_f, int B, int M,
-                  int N, int chains, int grid, int n_sweeps, float tau, float tol,
+                  int N, int chains, int grid, int stack, int n_sweeps, float tau, float tol,
                   int positivity, int strides, void* stream) {
   if ((z == nullptr) == (seeds == nullptr)) return cudaErrorInvalidValue;
   ResidentParams P{};
@@ -241,6 +304,7 @@ int sb_myula_step(const float* x, const float* prox, const float* grad, const fl
   P.M = M;
   P.N = N;
   P.C = chains;
+  P.stack = stack;
   P.max_iter = n_sweeps;
   P.positivity = positivity;
   P.tau = tau;
@@ -249,13 +313,22 @@ int sb_myula_step(const float* x, const float* prox, const float* grad, const fl
 }
 
 // The resident kernel's occupancy on the current device: out = {active
-// blocks per SM (the smallest of the four forms), registers a thread (the
-// largest), local (spill) bytes a thread (the largest), threads a block,
-// the blocks per SM of __launch_bounds__, SMs of the device, tile rows,
-// tile columns, floats of a border record}.
+// blocks per SM (the smallest of the four one-chain forms), registers a
+// thread (the largest of all six forms), local (spill) bytes a thread (the
+// largest), threads a block, the blocks per SM of __launch_bounds__, SMs of
+// the device, tile rows, tile columns, floats of a border record, the
+// chains a block may stack (KMAX when the stacked forms keep the one-chain
+// forms' blocks an SM with their shared memory, else 1)}.
 int sb_resident_occupancy(int* out) {
   cudaError_t e = occupancy_of(FORMS, 4, out);
   if (e != cudaSuccess) return e;
+  int so[3];
+  if ((e = allow_stacked()) != cudaSuccess ||
+      (e = occupancy_of(STACKED, 2, so, sizeof(Stack))) != cudaSuccess)
+    return e;
+  out[1] = so[1] > out[1] ? so[1] : out[1];
+  out[2] = so[2] > out[2] ? so[2] : out[2];
+  out[9] = so[0] >= out[0] ? KMAX : 1;
   int dev = 0, sms = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)

@@ -424,8 +424,8 @@ def _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_
         err = torch.empty((B,), **f32)
         geo, ws_int, ws_f, stream = resident_launch(x)
         tail = (iters.data_ptr(), err.data_ptr(), ws_int.data_ptr(), ws_f.data_ptr(),
-                ctypes.addressof(plan), ws_floats, B, M, N, geo.chains, geo.grid, int(n_sweeps),
-                float(tau), float(tol), int(bool(positivity)), strides, stream)
+                ctypes.addressof(plan), ws_floats, B, M, N, geo.chains, geo.grid, geo.stack,
+                int(n_sweeps), float(tau), float(tol), int(bool(positivity)), strides, stream)
         head = (torch.view_as_real(ghat).data_ptr(), x.data_ptr(), prox_cache.data_ptr(),
                 z.data_ptr(), packed["fac_inv"].data_ptr(), packed["w_t"].data_ptr())
         mid = (*(s.data_ptr() for s in scal), xn.data_ptr(), proxn.data_ptr(), tv.data_ptr())
@@ -443,6 +443,7 @@ def _launch(ghat, x, prox_cache, z, rdft_mats, gamma, lam, lam_theta, sigma2, n_
     check_status(code, what)
     kernel = "D" if forward else "E"
     profiling.counters.add("launches." + kernel)
+    profiling.counters.add("groups." + kernel, geo.groups)
     profiling.count_sweeps(kernel, iters)
     if return_iters:
         out = out + (iters,)

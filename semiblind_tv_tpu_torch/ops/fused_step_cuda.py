@@ -42,6 +42,8 @@ version fed `philox_normals(seeds)`.
 
 Entry points and their launch counters (profiling.counters):
 `myula_prox_tv` (B, `launches.B`), `myula_prox_tv_rng` (C, `launches.C`),
+each with `groups.B`/`groups.C`, the chain groups its launches ran one
+after another (tv_cuda.resident_geometry),
 `myula_prox_tv_blocked` (G and I, `launches.blocked_step`;
 `launches.blocked_step.seeds` of them in I's seeds form).  Each takes its
 plain version (`*_plain`) for a CPU tensor and the kernel for a CUDA tensor;
@@ -121,9 +123,10 @@ def myula_prox_tv_emulated(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel B's launch on the CPU, (B, M, N) fields: xn by the plain
     update, its circular TV as the fixed-order sum (chain_total) of the
-    tiles' partials (tile_sums) of √(dh² + dv²), then the prox's schedule
-    (chambolle_prox_resident_emulated) on xn with λθ.  Returns (xn, proxn,
-    tv, sweeps run)."""
+    tiles' partials (tile_sums) of √(dh² + dv²) (taken on the first barrier,
+    which a block's stacked chains share), then the prox's schedule
+    (chambolle_prox_resident_emulated, the same groups and stacks) on xn
+    with λθ.  Returns (xn, proxn, tv, sweeps run)."""
     xn = myula_kernel_step(x, prox_cache, grad_f, per_chain(gamma, x), per_chain(lam, x), z,
                            positivity)
     dh = xn - torch.roll(xn, 1, dims=-1)
@@ -140,7 +143,8 @@ def _launch_step(x, prox_cache, grad_f, z, seeds, gamma, lam, lam_theta, n_sweep
     """Check, allocate and launch kernel B (noise z) or C (noise drawn from
     seeds) on the card: csrc/tv_kernels.cu::sb_myula_step with σ² = 1, one
     persistent launch (tv_cuda.resident_launch's geometry and workspace).
-    Counts the launch and hands the sweeps it ran to the recorder."""
+    Counts the launch and its chain groups and hands the sweeps it ran to
+    the recorder.  Returns (xn, proxn, tv, sweeps run, last residual)."""
     from semiblind_tv_tpu_torch._build import load_library
 
     squeeze = x.ndim == 2
@@ -172,16 +176,17 @@ def _launch_step(x, prox_cache, grad_f, z, seeds, gamma, lam, lam_theta, n_sweep
             None if z is None else z.data_ptr(), None if seeds is None else seeds.data_ptr(),
             *(s.data_ptr() for s in scal), None,
             xn.data_ptr(), proxn.data_ptr(), tv.data_ptr(), iters.data_ptr(), err.data_ptr(),
-            ws_int.data_ptr(), ws_f.data_ptr(), B, M, N, geo.chains, geo.grid, int(n_sweeps),
-            float(tau), float(tol), int(bool(positivity)), strides, stream,
+            ws_int.data_ptr(), ws_f.data_ptr(), B, M, N, geo.chains, geo.grid, geo.stack,
+            int(n_sweeps), float(tau), float(tol), int(bool(positivity)), strides, stream,
         )
     check_status(code, what)
     kernel = "B" if z is not None else "C"
     profiling.counters.add("launches." + kernel)
+    profiling.counters.add("groups." + kernel, geo.groups)
     profiling.count_sweeps(kernel, iters)
     if squeeze:
-        xn, proxn, tv = xn[0], proxn[0], tv[0]
-    return xn, proxn, tv
+        xn, proxn, tv, iters, err = xn[0], proxn[0], tv[0], iters[0], err[0]
+    return xn, proxn, tv, iters, err
 
 
 def myula_prox_tv(
@@ -207,7 +212,7 @@ def myula_prox_tv(
     if x.device.type != "cuda":
         raise ValueError(f"myula_prox_tv: unsupported device {x.device}")
     return _launch_step(x, prox_cache, grad_f, z, None, gamma, lam, lam_theta, n_sweeps, tau,
-                        tol, positivity, "myula_prox_tv")
+                        tol, positivity, "myula_prox_tv")[:3]
 
 
 def myula_prox_tv_rng_plain(
@@ -244,7 +249,7 @@ def myula_prox_tv_rng(
     if x.device.type != "cuda":
         raise ValueError(f"myula_prox_tv_rng: unsupported device {x.device}")
     return _launch_step(x, prox_cache, grad_f, None, seeds, gamma, lam, lam_theta, n_sweeps, tau,
-                        tol, positivity, "myula_prox_tv_rng")
+                        tol, positivity, "myula_prox_tv_rng")[:3]
 
 
 def myula_prox_tv_blocked_plain(

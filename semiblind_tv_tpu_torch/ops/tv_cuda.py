@@ -11,7 +11,10 @@ in registers from the first sweep to the last; tiles exchange their borders
 and the chain's residual through a per-chain barrier in device memory, and
 a call is one launch (see the source's header).  `resident_geometry` picks
 the grid: the tiles of as many chains as the card holds at once, the chains
-in groups of that many; a chain with more tiles than the card holds (above
+in groups of that many; when the chains are more than that, each block
+holds the tile of up to `stack` chains (the stacked form: their duals in
+shared memory, one barrier a sweep for all of them), so that fewer groups
+run one after another; a chain with more tiles than the card holds (above
 about 512 × 1056) takes the walk form, each block sweeping several tiles in
 turn with the duals in device memory.
 
@@ -20,8 +23,9 @@ composition of ops/tv.py) for a CPU tensor and the kernel for a CUDA
 tensor; anything else raises.  There is no fallback from the kernel: a
 launch that CUDA refuses raises.
 `chambolle_prox_resident_emulated` replays the kernel's schedule on the CPU:
-the groups of chains, per-tile residual partials in the kernel's thread,
-warp and tile order, the per-chain fixed-order sum and the exit.
+the groups of chains, the stacked chains of a block swept in turn between
+two barriers, per-tile residual partials in the kernel's thread, warp and
+tile order, the per-chain fixed-order sum and each chain's own exit.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ from semiblind_tv_tpu_torch.runtime import profiling
 __all__ = [
     "chambolle_prox_cuda", "chambolle_prox_plain", "chambolle_prox_resident_emulated",
     "dual_ascent_loop", "neumann_div", "resident_geometry", "resident_capacity",
-    "resident_occupancy", "resident_workspace", "resident_floats", "barrier_error",
+    "resident_stack", "resident_occupancy", "resident_workspace", "resident_floats",
+    "barrier_error",
     "tile_sums", "chain_total", "scalar_on", "chain_scalars", "per_chain",
     "TILE_ROWS", "TILE_COLS",
 ]
@@ -44,7 +49,9 @@ __all__ = [
 # Constants of csrc/tv_kernels.cu: warps across and down a block, rows of a
 # thread's strip, the tile they make, floats of a tile's border record, and
 # the blocks an SM of the design; DESIGN_CAPACITY is the resident blocks of
-# an H100 (132 SMs) at that count, which the CPU emulation and tests take.
+# an H100 (132 SMs) at that count, and DESIGN_STACK the chains a block of the
+# stacked form holds there (KMAX of csrc/resident.cuh), which the CPU
+# emulation and tests take.
 WARPS_X = 2
 WARPS_Y = 4
 STRIP_ROWS = 8
@@ -54,12 +61,14 @@ BLOCK_THREADS = 32 * WARPS_X * WARPS_Y  # 256
 BORDER_FLOATS = 3 * TILE_COLS + 3 * TILE_ROWS
 BLOCKS_PER_SM = 2
 DESIGN_CAPACITY = BLOCKS_PER_SM * 132
+DESIGN_STACK = 3
 WS_INT_HEAD = 2                         # error code, exit counter
 
 # Launch counters (profiling.counters): `launches.A`, kernel-A launches (both
 # forms) made by chambolle_prox_cuda; `launches.A.fresh`, of which in the
-# fresh (zero-dual) form.  Sweep counters: `sweeps.A1` (warm) and
-# `sweeps.A2` (fresh), the plain version's included.
+# fresh (zero-dual) form; `groups.A`, the chain groups those launches ran
+# one after another (resident_geometry's `groups`).  Sweep counters:
+# `sweeps.A1` (warm) and `sweeps.A2` (fresh), the plain version's included.
 
 
 def neumann_div(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
@@ -172,27 +181,41 @@ class ResidentGeometry(NamedTuple):
     tiles: int              # tiles of a chain (T)
     chains: int             # chains of a group (C), resident at once
     groups: int             # groups the launch walks through
-    grid: int               # blocks of the launch: C · T, or K < T (walk form)
+    grid: int               # blocks of the launch: C/stack · T, or K < T (walk form)
     walk: int               # tiles a block sweeps in turn: 1 (resident form) or more
+    stack: int = 1          # chains a block sweeps between two barriers
 
 
-def resident_geometry(B: int, M: int, N: int, capacity: Optional[int] = None) -> ResidentGeometry:
+def resident_geometry(B: int, M: int, N: int, capacity: Optional[int] = None,
+                      stack_max: int = DESIGN_STACK) -> ResidentGeometry:
     """The resident kernel's launch for B chains of (M, N): 32 × 64 tiles,
-    T = ⌈M/32⌉·⌈N/64⌉ a chain.  When T ≤ capacity (the resident form),
-    C = min(B, capacity // T) chains at once and ⌈B/C⌉ groups, a grid of
-    C·T blocks, one a tile.  Otherwise (the walk form) one chain at a time,
-    B groups, each block sweeping walk = ⌈T/capacity⌉ tiles in turn, a grid
-    of ⌈T/walk⌉ blocks.  capacity: the blocks the card holds at once
-    (resident_capacity; by default the design's 2 an SM × 132)."""
+    T = ⌈M/32⌉·⌈N/64⌉ a chain.  When T ≤ capacity, P = capacity // T chains
+    fit at one a block.  B ≤ P (the resident form): C = B chains at once,
+    one group, a grid of B·T blocks, one a tile.  B > P: each block holds
+    its tile of stack = min(⌈B/P⌉, stack_max) chains (1: the resident form;
+    more: the stacked form), C = P·stack chains a group and ⌈B/C⌉ groups, a
+    grid of P·T blocks; block k handles tile k mod T of the chains g·C +
+    j·P + k // T (j < stack) in group g.  T > capacity (the walk form): one
+    chain at a time, B groups, each block sweeping walk = ⌈T/capacity⌉
+    tiles in turn, a grid of ⌈T/walk⌉ blocks.  capacity: the blocks the card
+    holds at once (resident_capacity; by default the design's 2 an SM ×
+    132); stack_max: the chains a block of the launching kernel may hold
+    (by default the design's, which kernels A-E launch with; 1 for kernel
+    J, which has no stacked form)."""
     cap = DESIGN_CAPACITY if capacity is None else int(capacity)
-    if B < 1 or M < 2 or N < 2 or cap < 1:
-        raise ValueError(f"no resident geometry for B={B}, {M}x{N} at {cap} blocks")
+    if B < 1 or M < 2 or N < 2 or cap < 1 or stack_max < 1:
+        raise ValueError(f"no resident geometry for B={B}, {M}x{N} at {cap} blocks "
+                         f"and {stack_max} chains a block")
     T = -(-M // TILE_ROWS) * -(-N // TILE_COLS)
     if T > cap:
         walk = -(-T // cap)
         return ResidentGeometry((TILE_ROWS, TILE_COLS), T, 1, B, -(-T // walk), walk)
-    C = min(B, cap // T)
-    return ResidentGeometry((TILE_ROWS, TILE_COLS), T, C, -(-B // C), C * T, 1)
+    P = cap // T
+    if B <= P:
+        return ResidentGeometry((TILE_ROWS, TILE_COLS), T, B, 1, B * T, 1)
+    stack = min(-(-B // P), int(stack_max))
+    C = P * stack
+    return ResidentGeometry((TILE_ROWS, TILE_COLS), T, C, -(-B // C), P * T, 1, stack)
 
 
 _OCCUPANCY = {}
@@ -201,18 +224,19 @@ _OCCUPANCY = {}
 def resident_occupancy(device) -> dict:
     """sb_resident_occupancy on `device` (cached): blocks an SM, registers
     and local bytes a thread, threads a block, the blocks an SM of
-    __launch_bounds__, SMs, tile rows and columns, border floats."""
+    __launch_bounds__, SMs, tile rows and columns, border floats, and the
+    chains a block of the stacked form may hold (`stack_max`)."""
     from semiblind_tv_tpu_torch._build import load_library
 
     dev = torch.device(device)
     key = dev.index if dev.index is not None else torch.cuda.current_device()
     if key not in _OCCUPANCY:
         lib = load_library()
-        out = (ctypes.c_int * 9)()
+        out = (ctypes.c_int * 10)()
         with torch.cuda.device(key):
             check_status(lib.sb_resident_occupancy(out), "sb_resident_occupancy")
         names = ("blocks_per_sm", "registers", "local_bytes", "threads", "launch_bounds_blocks",
-                 "sms", "tile_rows", "tile_cols", "border_floats")
+                 "sms", "tile_rows", "tile_cols", "border_floats", "stack_max")
         occ = dict(zip(names, list(out)))
         if (occ["tile_rows"], occ["tile_cols"], occ["border_floats"]) != (
                 TILE_ROWS, TILE_COLS, BORDER_FLOATS):
@@ -225,6 +249,11 @@ def resident_capacity(device) -> int:
     """Blocks of the resident kernel the card holds at once."""
     occ = resident_occupancy(device)
     return occ["blocks_per_sm"] * occ["sms"]
+
+
+def resident_stack(device) -> int:
+    """Chains a block of the stacked form holds on the card (1: none)."""
+    return resident_occupancy(device)["stack_max"]
 
 
 def resident_floats(geo: ResidentGeometry, M: int, N: int) -> int:
@@ -267,12 +296,15 @@ def barrier_error() -> int:
     return max(int(ws[0][0]) for ws in _WORKSPACE.values())
 
 
-def resident_launch(like: torch.Tensor):
+def resident_launch(like: torch.Tensor, stack_max: Optional[int] = None):
     """(geometry, ws_int, ws_f, stream) of a resident launch over `like`'s
-    (B, M, N) on its device's current stream."""
+    (B, M, N) on its device's current stream; stack_max: the chains a block
+    may hold (None: resident_stack, kernels A-E)."""
     B, M, N = like.shape
     stream = torch.cuda.current_stream(like.device).cuda_stream
-    geo = resident_geometry(B, M, N, resident_capacity(like.device))
+    if stack_max is None:
+        stack_max = resident_stack(like.device)
+    geo = resident_geometry(B, M, N, resident_capacity(like.device), stack_max)
     ws_int, ws_f = resident_workspace(like.device, stream, resident_floats(geo, M, N))
     return geo, ws_int, ws_f, stream
 
@@ -340,11 +372,12 @@ def chambolle_prox_cuda(
             duals[1].data_ptr() if duals is not None else None,
             f.data_ptr(), px.data_ptr() if px is not None else None,
             py.data_ptr() if py is not None else None, iters.data_ptr(), err.data_ptr(),
-            ws_int.data_ptr(), ws_f.data_ptr(), B, M, N, geo.chains, geo.grid, int(max_iter),
-            float(tau), float(tol), strides, stream,
+            ws_int.data_ptr(), ws_f.data_ptr(), B, M, N, geo.chains, geo.grid, geo.stack,
+            int(max_iter), float(tau), float(tol), strides, stream,
         )
     check_status(code, "chambolle_prox_cuda")
     profiling.counters.add("launches.A")
+    profiling.counters.add("groups.A", geo.groups)
     if duals is None:
         profiling.counters.add("launches.A.fresh")
     profiling.count_sweeps("A2" if duals is None else "A1", iters)
@@ -435,15 +468,19 @@ def chambolle_prox_resident_emulated(
     duals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     return_state: bool = True,
     capacity: Optional[int] = None,
+    stack_max: int = DESIGN_STACK,
 ) -> Tuple[torch.Tensor, ChambolleState]:
     """The resident kernel's schedule in PyTorch, on the CPU: the groups of
-    resident_geometry(B, M, N, capacity), each chain of a group swept until
-    its exit — each sweep's residual the fixed-order sum (chain_total) of
-    the tiles' partials (tile_sums), the sweep whose residual is ≤ tol still
-    applied — then f = g − λ·div p.  The per-pixel operations are the
-    kernel's, on whole fields (a tile's border exchange gives each pixel
-    the same neighbours).  Same signature and results as
-    chambolle_prox_cuda otherwise."""
+    resident_geometry(B, M, N, capacity, stack_max), and in each the slots
+    of `stack` chains, a block's chains.  A slot's sweep round sweeps each
+    of its running chains once, then one barrier gives every one of them its
+    residual, the fixed-order sum (chain_total) of the tiles' partials
+    (tile_sums); a chain whose residual is ≤ tol leaves (that sweep still
+    applied) and keeps its duals, and the slot sweeps on while any of its
+    chains runs.  Then f = g − λ·div p.  The per-pixel operations are the
+    kernel's, on whole fields (a tile's border exchange gives each pixel the
+    same neighbours).  Same signature and results as chambolle_prox_cuda
+    otherwise."""
     squeeze = g.ndim == 2
     if squeeze:
         g = g[None]
@@ -452,28 +489,33 @@ def chambolle_prox_resident_emulated(
     if not return_state and duals is not None:
         raise ValueError("return_state=False requires duals=None (fresh duals)")
     B, M, N = g.shape
-    geo = resident_geometry(B, M, N, capacity)
+    geo = resident_geometry(B, M, N, capacity, stack_max)
     lam = per_chain(lam, g)
     px_all = torch.zeros_like(g) if duals is None else duals[0].clone()
     py_all = torch.zeros_like(g) if duals is None else duals[1].clone()
     iters = torch.zeros((B,), dtype=torch.int32)
     err = torch.full((B,), float("inf"), dtype=g.dtype)
+    slots = geo.chains // geo.stack
     seen = []
     for grp in range(geo.groups):
-        for slot in range(geo.chains):
-            b = grp * geo.chains + slot
-            if b >= B:
-                continue
-            seen.append(b)
-            glam = g[b] / (lam[b] if torch.is_tensor(lam) and lam.ndim == 3 else lam)
-            px, py = px_all[b], py_all[b]
+        for slot in range(slots):
+            chains = [b for b in (grp * geo.chains + k * slots + slot for k in range(geo.stack))
+                      if b < B]
+            seen += chains
+            glam = {b: g[b] / (lam[b] if torch.is_tensor(lam) and lam.ndim == 3 else lam)
+                    for b in chains}
+            live = list(chains)
             for s in range(max_iter):
-                px, py, r2 = _sweep(px, py, glam, tau)
-                e = torch.sqrt(chain_total(tile_sums(r2)))
-                iters[b], err[b] = s + 1, e
-                if not bool(e > tol):
+                if not live:
                     break
-            px_all[b], py_all[b] = px, py
+                r2 = {}
+                for b in live:   # the block's running chains, in turn
+                    px_all[b], py_all[b], r2[b] = _sweep(px_all[b], py_all[b], glam[b], tau)
+                for b in list(live):   # one barrier: each chain's residual and exit
+                    e = torch.sqrt(chain_total(tile_sums(r2[b])))
+                    iters[b], err[b] = s + 1, e
+                    if not bool(e > tol):
+                        live.remove(b)
     if sorted(seen) != list(range(B)):
         raise AssertionError(f"the groups cover chains {seen}, not each of {B} once")
     f = g - lam * divergence(px_all, py_all)

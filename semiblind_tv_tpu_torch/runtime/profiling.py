@@ -27,17 +27,19 @@ SALSA/callcounter.m:8-16).  Here:
                         `snapshot()` returns what was kept, `export(path)`
                         writes it as a Chrome trace.
   * `counters`        — one registry of named integer counters.  The kernel
-                        wrappers' launch counts (`launches.<kernel>`) are
-                        always on.  While the recorder is on, every wrapper
+                        wrappers' launch counts (`launches.<kernel>`) and
+                        the resident kernels' chain groups run one after
+                        another (`groups.<kernel>`, A-E and J) are always
+                        on.  While the recorder is on, every wrapper
                         whose kernel writes its per-chain sweep counts hands
                         them to `count_sweeps(kernel, iters)`, which adds the
                         calls' chains to `chain_calls.<kernel>` and keeps the
                         device tensor (no launch, no sync); `fold_sweeps()`
                         adds the kept counts to `sweeps.<kernel>`, once a run,
                         after its synchronize.  Inside a CUDA graph's capture
-                        (`capturing()`) the launch counts and the sweep-count
-                        tensors are collected instead, and each replay
-                        reports them (`replayed()`).  The SAPG run counts
+                        (`capturing()`) the launch and group counts and the
+                        sweep-count tensors are collected instead, and each
+                        replay reports them (`replayed()`).  The SAPG run counts
                         `graph.captures`, `graph.replays` and
                         `graph.eager_steps` (iterations run without a
                         replay), always on.  Only across ranks (a chains
@@ -254,9 +256,10 @@ def count_sweeps(kernel: str, iters: torch.Tensor) -> None:
 
 class _Captured:
     """What the kernel wrappers reported while a CUDA graph was captured:
-    `launches`, {counter: launches} taken back out of `counters` (a capture
-    runs nothing), and `sweeps`, the (kernel, sweep-count tensor) pairs, the
-    tensors being the graph's own, which each replay rewrites."""
+    `launches`, {counter: count} of the `launches.*` and `groups.*`
+    counters, taken back out of `counters` (a capture runs nothing), and
+    `sweeps`, the (kernel, sweep-count tensor) pairs, the tensors being the
+    graph's own, which each replay rewrites."""
 
     def __init__(self):
         self.launches = {}
@@ -266,9 +269,9 @@ class _Captured:
 @contextlib.contextmanager
 def capturing():
     """The region of a CUDA graph capture: yields a _Captured that collects
-    the wrappers' launch counts and sweep-count tensors reported inside it,
-    which leave `counters` and the recorder as they were.  Hand it to
-    replayed() after each replay of the graph."""
+    the wrappers' launch and group counts and sweep-count tensors reported
+    inside it, which leave `counters` and the recorder as they were.  Hand
+    it to replayed() after each replay of the graph."""
     cap = _Captured()
     before = counters.snapshot()
     outer, _REC.capture = _REC.capture, cap
@@ -277,16 +280,16 @@ def capturing():
     finally:
         _REC.capture = outer
         for name, n in counters.snapshot().items():
-            if name.startswith("launches.") and n != before.get(name, 0):
+            if name.startswith(("launches.", "groups.")) and n != before.get(name, 0):
                 cap.launches[name] = n - before.get(name, 0)
                 counters.add(name, -cap.launches[name])
 
 
 def replayed(cap: "_Captured") -> None:
-    """Report one replay of a captured graph: its launches to `counters`,
-    and, while the recorder counts sweeps, a copy of each sweep-count
-    tensor it wrote to count_sweeps (one device copy each; the next replay
-    overwrites the graph's own)."""
+    """Report one replay of a captured graph: its launches and groups to
+    `counters`, and, while the recorder counts sweeps, a copy of each
+    sweep-count tensor it wrote to count_sweeps (one device copy each; the
+    next replay overwrites the graph's own)."""
     for name, n in cap.launches.items():
         counters.add(name, n)
     if cap.sweeps and _REC.on and (_REC.in_sessions or not _profiler_enabled()):

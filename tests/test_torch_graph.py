@@ -193,6 +193,25 @@ def test_eager_run_counts_eager_steps_and_never_captures():
     assert problem.step_graphs == {}
 
 
+def test_a_capture_reports_its_chain_groups_once_a_replay():
+    """`groups.<kernel>` (the chain groups a resident launch ran one after
+    another) leaves the counters during a capture, as `launches.*` does,
+    and each replay adds the captured launch's groups."""
+    c = profiling.counters
+    profiling.reset()
+    try:
+        with profiling.capturing() as cap:
+            c.add("launches.B")
+            c.add("groups.B", 3)
+        assert c["groups.B"] == c["launches.B"] == 0
+        assert cap.launches == {"launches.B": 1, "groups.B": 3}
+        for _ in range(4):
+            profiling.replayed(cap)
+        assert c["launches.B"] == 4 and c["groups.B"] == 12
+    finally:
+        profiling.reset()
+
+
 def test_a_capture_reports_its_launches_and_sweeps_once_a_replay():
     c = profiling.counters
     profiling.reset()

@@ -15,7 +15,11 @@ tiles than the card holds at once, in the walk form), also where operands
 leave its fast quotient's range; the TV and the last residual, summed in
 another order, within 1e-5; its barrier error code stays 0, ptxas reports
 no spill, it gets the blocks an SM its design names, and a grid the card
-cannot hold at once is refused and raises.  The other kernels' f, duals,
+cannot hold at once is refused and raises.  Where the chains outnumber
+what the card holds at one a block, its stacked form (three chains a
+block; 512² B=16 and 256² B=40, A1, A2, B and C) gives every output of a
+one-chain-a-block launch bit for bit, sums and sweep counts included, also
+where the chains of one block stop on different sweeps.  The other kernels' f, duals,
 xn and proxn agree with the plain versions to 1e-5 of their largest
 magnitude at a fixed sweep count (tol=0) — the residual and TV sums are
 taken in another order — and the early exit stops on the same sweep.  The
@@ -189,9 +193,9 @@ def test_resident_forms_bit_equal_to_plain(cuda_device, form, shape):
 @pytest.mark.parametrize("form", ["A1", "A2", "B"])
 def test_resident_sweep_counts_match_plain(cuda_device, form, shape):
     """tol=1e-3 on chains scaled from 1 down to 1e-9, which stop on sweep 1,
-    on later sweeps or never; B=40 at 256² runs in five groups of chains
-    (8 chains of 32 tiles a group at 264 blocks), 700×1100 in the walk
-    form (396 tiles a chain)."""
+    on later sweeps or never; B=40 at 256² runs in two groups of chains
+    (8 slots of 32 tiles at 264 blocks, three chains a block: the stacked
+    form), 700×1100 in the walk form (396 tiles a chain)."""
     scales = torch.logspace(0, -9, shape[0]) if shape[0] > 1 else torch.ones(1)
     k, p, _ = _resident_call(form, shape, cuda_device, 1e-3, seed=3, scales=scales)
     torch.cuda.synchronize()
@@ -203,6 +207,88 @@ def test_resident_sweep_counts_match_plain(cuda_device, form, shape):
     if shape == (40, 256, 256):
         assert geo.groups > 1
     assert (geo.walk > 1) == (shape == (4, 700, 1100))
+
+
+def _stacked_call(form, shape, dev, tol, scales):
+    """One form's kernel outputs on fixed inputs, as tensors: A1/A2 (f, px,
+    py, sweeps, last residual), B/C (xn, proxn, tv, sweeps, last residual);
+    and the plain version's (A1/A2: the same; B/C: xn, proxn, tv and the
+    plain prox's sweeps on xn).  Counts `groups.<kernel>` around the
+    kernel's call."""
+    rng = np.random.default_rng(11)
+    sc = scales.to(dev)[:, None, None]
+    if form in ("A1", "A2"):
+        g = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(dev) * sc
+        if form == "A1":
+            duals = (_field(rng, shape, dev) * sc, _field(rng, shape, dev) * sc)
+            args = (g, torch.tensor(20.0, device=dev), 10, 0.249, tol, duals)
+        else:
+            args = (g, torch.tensor(0.5, device=dev), 25, 0.249, tol, None, True)
+        before = counters["groups.A"]
+        f, st = tv_cuda.chambolle_prox_cuda(*args)
+        groups = counters["groups.A"] - before
+        pf, pst = tv_cuda.chambolle_prox_plain(*args)
+        return ((f, st.px, st.py, st.iters, st.err), (pf, pst.px, pst.py, pst.iters),
+                groups)
+    x, prox, grad = (v * sc for v in _step_fields(rng, shape, dev))
+    # γ a chain, so that the noise √(2γ)·Z scales with the chain
+    scal = (torch.tensor(_STEP_SCALARS[0], device=dev) * scales.to(dev) ** 2,
+            *(torch.tensor(v, device=dev) for v in _STEP_SCALARS[1:]))
+    noise = _field(rng, shape, dev) if form == "B" else _seeds(rng, shape[0], dev)
+    z, seeds = (noise, None) if form == "B" else (None, noise)
+    before = counters["groups." + form]
+    k = fused_step_cuda._launch_step(x, prox, grad, z, seeds, *scal, 25, 0.249, tol, True, form)
+    groups = counters["groups." + form] - before
+    plain = (fused_step_cuda.myula_prox_tv_plain if form == "B"
+             else fused_step_cuda.myula_prox_tv_rng_plain)
+    p = plain(x, prox, grad, noise, *scal, 25, tol=tol)
+    _, pst = tv_cuda.chambolle_prox_plain(p[0], scal[2], 25, tol=tol)
+    return k, (*p, pst.iters), groups
+
+
+@pytest.mark.parametrize("shape,tol,spread", [((16, 512, 512), 0.0, False),
+                                              ((16, 512, 512), 1e-3, True),
+                                              ((40, 256, 256), 1e-3, True)])
+@pytest.mark.parametrize("form", ["A1", "A2", "B", "C"])
+def test_stacked_forms_bit_equal_to_one_chain_a_block(cuda_device, monkeypatch, form, shape,
+                                                      tol, spread):
+    """Where the chains outnumber the card's one-chain-a-block capacity, the
+    wrappers launch the stacked form (three chains a block: 512² B=16 in 3
+    groups, 256² B=40 in 2); every output equals a launch of one chain a
+    block (8 and 5 groups) bit for bit, sums and sweep counts included, and
+    the fields, sweeps and TV equal the plain version's, also where the
+    chains of one block stop on different sweeps (tol 1e-3 on chains scaled
+    from 1 down to 1e-9)."""
+    cap = tv_cuda.resident_capacity(cuda_device)
+    B = shape[0]
+    geo = tv_cuda.resident_geometry(*shape, cap, tv_cuda.resident_stack(cuda_device))
+    one = tv_cuda.resident_geometry(*shape, cap, 1)
+    assert geo.stack == 3 and geo.groups < one.groups
+    scales = torch.logspace(0, -9, B) if spread else torch.ones(B)
+    k, p, groups = _stacked_call(form, shape, cuda_device, tol, scales)
+    with monkeypatch.context() as m:
+        m.setattr(tv_cuda, "resident_stack", lambda device: 1)
+        k1, _, groups1 = _stacked_call(form, shape, cuda_device, tol, scales)
+    torch.cuda.synchronize()
+    assert (groups, groups1) == (geo.groups, one.groups)
+    for a, b in zip(k, k1):
+        assert torch.equal(a, b)
+    for a, b in zip(k[:2], p[:2]):
+        assert torch.equal(a, b)
+    if form in ("A1", "A2"):
+        assert torch.equal(k[2], p[2])
+    else:
+        assert _rel_err(k[2], p[2]) <= REL
+    assert torch.equal(k[3].cpu(), p[3].cpu())
+    its = k[3].tolist()
+    if spread:   # some block holds chains that stop on different sweeps
+        slots = geo.chains // geo.stack
+        blocks = [[its[b] for b in range(g * geo.chains + s, min(B, (g + 1) * geo.chains), slots)]
+                  for g in range(geo.groups) for s in range(slots)]
+        assert any(len(set(c)) > 1 for c in blocks), blocks
+    else:
+        assert set(its) == {10 if form == "A1" else 25}
+    assert tv_cuda.barrier_error() == 0
 
 
 @pytest.mark.parametrize("scale", [1e-30, 1e30])
@@ -222,15 +308,18 @@ def test_resident_outside_the_fast_range_matches_plain(cuda_device, scale, form)
 
 def test_resident_occupancy_spills_and_exact_operators(cuda_device):
     """The resident kernel gets the blocks an SM its __launch_bounds__
-    names, ptxas reports no spill in any of its four forms, and its exact quotient
-    and root are IEEE's on a sample (chip_smoke.py checks every root)."""
+    names, its stacked forms keep them with three chains a block, ptxas
+    reports no spill in any of its six forms, and its exact quotient and
+    root are IEEE's on a sample (chip_smoke.py checks every root)."""
     from semiblind_tv_tpu_torch._build import kernel_usage, load_library
 
     occ = tv_cuda.resident_occupancy(cuda_device)
     assert occ["blocks_per_sm"] == occ["launch_bounds_blocks"]
     assert occ["registers"] * occ["threads"] * occ["blocks_per_sm"] <= 65536
+    assert occ["stack_max"] == tv_cuda.DESIGN_STACK == 3
     usage = kernel_usage("resident_")
-    assert sorted(usage) == ["resident_prox", "resident_prox_walk", "resident_step",
+    assert sorted(usage) == ["resident_prox", "resident_prox_stacked", "resident_prox_walk",
+                             "resident_step", "resident_step_stacked",
                              "resident_step_walk"], usage
     assert all(u["spill_stores"] == u["spill_loads"] == 0 for u in usage.values()), usage
     geo = tv_cuda.resident_geometry(16, 512, 512, tv_cuda.resident_capacity(cuda_device))
@@ -811,13 +900,15 @@ def _assert_bit_equal(a, b):
 
 
 @pytest.mark.parametrize("name,size,B", [("gaussian", 512, 1), ("moffat", 512, 1),
-                                         ("gaussian", 64, 16), ("isotropic_gaussian", 64, 1)])
+                                         ("gaussian", 64, 16), ("isotropic_gaussian", 64, 1),
+                                         ("gaussian", 512, 16)])
 def test_graphed_run_is_bit_equal_to_the_eager_run(cuda_device, name, size, B):
     """run_sapg replays its iterations as CUDA graphs on route B: traces and
     X_last equal the eager step's bit for bit, in the capturing run and in
     the next (which replays every iteration), each iteration is a replay or
-    an eager step, kernel B's sweeps are the eager run's, and the resident
-    kernel's barriers complete."""
+    an eager step, kernel B's launches, chain groups and sweeps are the eager
+    run's (512² B=16: the stacked form, three groups a call, inside the
+    captured step), and the resident kernel's barriers complete."""
     from semiblind_tv_tpu_torch.runtime import profiling
     from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
 
@@ -843,9 +934,10 @@ def test_graphed_run_is_bit_equal_to_the_eager_run(cuda_device, name, size, B):
     assert second["graph.replays"] == steps and "graph.eager_steps" not in second
     assert eager["graph.eager_steps"] == steps and "graph.replays" not in eager
     for c in (first, second):
-        for k in ("launches.B", "sweeps.B", "chain_calls.B"):
+        for k in ("launches.B", "groups.B", "sweeps.B", "chain_calls.B"):
             assert c[k] == eager[k], k
     assert eager["chain_calls.B"] == B * steps
+    assert eager["groups.B"] == eager["launches.B"] * (3 if (size, B) == (512, 16) else 1)
     if size == 512:
         assert eager["sweeps.B"] == 25 * eager["chain_calls.B"]
     _assert_bit_equal(runs[1], runs[0])

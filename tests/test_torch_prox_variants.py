@@ -256,7 +256,7 @@ def test_resident_emulation_matches_plain(mode, shape, form):
     B, M, N = shape
     T = resident_geometry(1, M, N).tiles
     cap = EMU_FORMS[form](T)
-    geo = resident_geometry(B, M, N, cap)
+    geo = resident_geometry(B, M, N, cap, 1)
     assert (geo.walk > 1) == (form == "walk") and (geo.chains == 1) == (form != "resident")
     g = _emu_field(shape)
     decisive = TOL_DECISIVE * (M * N / (33 * 40)) ** 0.5

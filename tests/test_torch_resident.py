@@ -1,9 +1,10 @@
 """The resident kernel's schedule (csrc/tv_kernels.cu) on the CPU.
 
 `tv_cuda.chambolle_prox_resident_emulated` replays the kernel's launch —
-the groups of chains of `resident_geometry`, per-tile residual partials in
-the kernel's thread, warp and tile order, the per-chain fixed-order sum and
-the early exit — and `fused_step_cuda.myula_prox_tv_emulated` adds the
+the groups of chains of `resident_geometry`, the stacked chains of a block
+swept in turn between two barriers, per-tile residual partials in the
+kernel's thread, warp and tile order, the per-chain fixed-order sum and
+each chain's early exit — and `fused_step_cuda.myula_prox_tv_emulated` adds the
 prologue's TV in the same order.  Both are held against the plain versions
 in float64 (equal sweep counts, fields to 1e-12, the sums to 1e-12
 relative: they differ only by their order of summation) and against the
@@ -64,14 +65,70 @@ def test_resident_emulation_matches_plain_prox(shape, warm):
 
 def test_resident_emulation_ends_on_sweep_one_odd_and_even_counts():
     """Chains that stop on sweep 1, on an odd count and on an even count,
-    across three groups."""
+    across three groups of one chain a block."""
     g = torch.from_numpy(_batch((40, 16, 16), seed=3))
-    _, st = tv_cuda.chambolle_prox_resident_emulated(g, 0.5, 24, capacity=SMALL_CAPACITY)
+    _, st = tv_cuda.chambolle_prox_resident_emulated(g, 0.5, 24, capacity=SMALL_CAPACITY,
+                                                     stack_max=1)
     _, pst = tv_cuda.chambolle_prox_plain(g, 0.5, 24)
     its = st.iters.tolist()
     assert its == pst.iters.tolist()
     assert 1 in its and any(k % 2 and k > 1 for k in its) and any(k % 2 == 0 for k in its), its
-    assert tv_cuda.resident_geometry(40, 16, 16, SMALL_CAPACITY).groups == 3
+    assert tv_cuda.resident_geometry(40, 16, 16, SMALL_CAPACITY, 1).groups == 3
+
+
+# log10 of each chain's scale: at capacity 2 the 16x16 chains (one tile each)
+# stack three to a block, block 0 holding chains 0, 2, 4 and block 1 chains
+# 1, 3, 5 in the first group, chains 6 and 7 the second group
+STACKED_SCALES = (-3.8, -3.72, -3.65, 0.0, -3.63, -3.69, -3.73, -3.67)
+STACKED_ITERS = [1, 3, 15, 24, 20, 8, 2, 11]
+
+
+def _stacked_batch():
+    base = _batch((1, 16, 16), seed=3)[0]
+    return torch.from_numpy(np.stack([base * 10.0 ** s for s in STACKED_SCALES]))
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_stacked_emulation_chains_of_a_block_end_apart(warm):
+    """The chains of one block stop on sweep 1, on an odd count and on an
+    even count (block 0: 1, 15, 20); each leaves on its own residual while
+    the block sweeps on, and the fields equal the plain prox's and the
+    one-chain-a-block schedule's."""
+    g = _stacked_batch()
+    geo = tv_cuda.resident_geometry(*g.shape, 2, tv_cuda.DESIGN_STACK)
+    assert (geo.stack, geo.chains, geo.groups, geo.grid) == (3, 6, 2, 2)
+    duals = _duals(g.shape, 8, 1e-9) if warm else None
+    f, st = tv_cuda.chambolle_prox_resident_emulated(g, 0.5, 24, duals=duals, capacity=2)
+    f1, st1 = tv_cuda.chambolle_prox_resident_emulated(g, 0.5, 24, duals=duals, capacity=2,
+                                                       stack_max=1)
+    pf, pst = tv_cuda.chambolle_prox_plain(g, 0.5, 24, duals=duals)
+    assert st.iters.tolist() == pst.iters.tolist() == st1.iters.tolist()
+    if not warm:
+        assert st.iters.tolist() == STACKED_ITERS
+    for a, b in ((f, pf), (st.px, pst.px), (st.py, pst.py)):
+        _close(a.numpy(), b.numpy())
+    for a, b in ((f, f1), (st.px, st1.px), (st.py, st1.py), (st.err, st1.err)):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(st.err.numpy(), pst.err.numpy(), rtol=TOL)
+
+
+@pytest.mark.parametrize("positivity", [True, False])
+def test_stacked_emulated_fused_step_matches_plain(positivity):
+    """Kernel B's launch with three chains a block (two groups): the TV rides
+    on the shared first barrier; xn, proxn, tv and the sweeps as plain."""
+    shape = (8, 16, 16)
+    args = [torch.from_numpy(a) for a in _step_inputs(shape)]
+    assert tv_cuda.resident_geometry(*shape, 2, tv_cuda.DESIGN_STACK).stack == 3
+    xn, proxn, tv, iters = fused_step_cuda.myula_prox_tv_emulated(
+        *args, 1.9, 2.0, 0.02, 25, positivity=positivity, capacity=2)
+    pxn, pproxn, ptv = fused_step_cuda.myula_prox_tv_plain(*args, 1.9, 2.0, 0.02, 25,
+                                                           positivity=positivity)
+    _, pst = tv_cuda.chambolle_prox_plain(pxn, 0.02, 25)
+    np.testing.assert_array_equal(xn.numpy(), pxn.numpy())
+    _close(proxn.numpy(), pproxn.numpy())
+    np.testing.assert_allclose(tv.numpy(), ptv.numpy(), rtol=TOL)
+    np.testing.assert_array_equal(iters.numpy(), pst.iters.numpy())
+    assert min(iters.tolist()) < 25
 
 
 @pytest.mark.parametrize("warm", [False, True])
@@ -170,6 +227,7 @@ def test_sums_follow_the_kernels_order():
     assert float(tv_cuda.chain_total(parts)) == float(want)
 
 
+@pytest.mark.parametrize("stack_max", [1, tv_cuda.DESIGN_STACK])
 @pytest.mark.parametrize("B,M,N,capacity", [
     (1, 512, 512, None), (16, 512, 512, None), (3, 480, 353, None), (40, 256, 256, None),
     (2, 20, 44, None), (1, 2, 2, None), (40, 16, 16, SMALL_CAPACITY), (7, 100, 130, 20),
@@ -178,8 +236,8 @@ def test_sums_follow_the_kernels_order():
     (4, 1024, 1024, None), (1, 2048, 2048, None), (3, 1000, 1528, None), (1, 512, 512, 100),
     (2, 100, 130, 4), (1, 5000, 300, None),
 ])
-def test_resident_geometry_covers_tiles_and_chains(B, M, N, capacity):
-    geo = tv_cuda.resident_geometry(B, M, N, capacity)
+def test_resident_geometry_covers_tiles_and_chains(B, M, N, capacity, stack_max):
+    geo = tv_cuda.resident_geometry(B, M, N, capacity, stack_max)
     cap = tv_cuda.DESIGN_CAPACITY if capacity is None else capacity
     TH, TW = geo.tile
     assert (TH, TW) == (tv_cuda.TILE_ROWS, tv_cuda.TILE_COLS) == (32, 64)
@@ -189,20 +247,32 @@ def test_resident_geometry_covers_tiles_and_chains(B, M, N, capacity):
     # the grid fits the resident capacity
     assert geo.grid <= cap
     assert (geo.walk == 1) == (geo.tiles <= cap)
+    # one chain a block whenever every chain fits so, else up to stack_max
+    assert 1 <= geo.stack <= stack_max
+    assert (geo.stack == 1) == (B * geo.tiles <= cap or stack_max == 1 or geo.walk > 1)
     if geo.walk == 1:
-        assert geo.grid == geo.chains * geo.tiles
-        # block k handles tile k mod T of chain g·C + k / T: every chain once
-        seen = [g * geo.chains + k // geo.tiles for g in range(geo.groups)
-                for k in range(0, geo.grid, geo.tiles) if g * geo.chains + k // geo.tiles < B]
+        per = cap // geo.tiles
+        slots = geo.chains // geo.stack
+        assert geo.chains == slots * geo.stack and geo.grid == slots * geo.tiles
+        assert slots == min(B, per)
+        if geo.stack > 1:
+            assert geo.stack == min(-(-B // per), stack_max)
+        # block k handles tile k mod T of chains g·C + j·slots + k / T, j <
+        # stack: every chain once
+        seen = [g * geo.chains + j * slots + k // geo.tiles for g in range(geo.groups)
+                for k in range(0, geo.grid, geo.tiles) for j in range(geo.stack)
+                if g * geo.chains + j * slots + k // geo.tiles < B]
     else:
         # one chain a group; block k sweeps tiles k, k + K, ...: every tile once
-        assert geo.chains == 1 and geo.grid < geo.tiles
+        assert geo.chains == 1 and geo.grid < geo.tiles and geo.stack == 1
         tiles = sorted(t for k in range(geo.grid) for t in range(k, geo.tiles, geo.grid))
         assert tiles == list(range(geo.tiles))
         assert max(len(range(k, geo.tiles, geo.grid)) for k in range(geo.grid)) == geo.walk
         seen = list(range(geo.groups))
     assert sorted(seen) == list(range(B))
     assert geo.groups == -(-B // geo.chains)
+    if (B, M, N, capacity) == (16, 512, 512, None):   # the B = 16 cells: 8 groups, or 3
+        assert (geo.groups, geo.stack) == ((8, 1) if stack_max == 1 else (3, 3))
 
 
 def test_resident_geometry_rejects_what_does_not_fit():
@@ -213,16 +283,19 @@ def test_resident_geometry_rejects_what_does_not_fit():
     with pytest.raises(ValueError):
         tv_cuda.resident_geometry(1, 1, 8)
     with pytest.raises(ValueError):
+        tv_cuda.resident_geometry(16, 512, 512, None, 0)   # a kernel that holds no chain
+    with pytest.raises(ValueError):
         fused_step_cuda.myula_prox_tv_emulated(*(torch.zeros((1, 64, 64)),) * 4, 1.0, 1.0, 0.1,
                                                capacity=0)
 
 
-@pytest.mark.parametrize("B,M,N,capacity,floats", [
-    (16, 512, 512, None, 2 * 256 * (288 + 2)),                     # resident: C·T = 256
-    (1, 2048, 2048, None, 2 * 2048 * (288 + 2) + 2 * 2048 * 2048),  # walk: the duals too
+@pytest.mark.parametrize("B,M,N,capacity,stack_max,floats", [
+    (16, 512, 512, None, 1, 2 * 256 * (288 + 2)),                     # resident: C·T = 256
+    (16, 512, 512, None, 3, 2 * 768 * (288 + 2)),                     # stacked: C·T = 6·128
+    (1, 2048, 2048, None, 3, 2 * 2048 * (288 + 2) + 2 * 2048 * 2048),  # walk: the duals too
 ])
-def test_resident_workspace_floats(B, M, N, capacity, floats):
-    geo = tv_cuda.resident_geometry(B, M, N, capacity)
+def test_resident_workspace_floats(B, M, N, capacity, stack_max, floats):
+    geo = tv_cuda.resident_geometry(B, M, N, capacity, stack_max)
     assert tv_cuda.BORDER_FLOATS == 288
     assert tv_cuda.resident_floats(geo, M, N) == floats
 
