@@ -949,10 +949,7 @@ def prepared_step(torch, problem, B, route=None):
         draw = lambda: noise(shape)  # noqa: E731
     X = problem.y.expand(shape).contiguous()
     prox = aux["prox_b"](X, aux["lam"] * aux["theta0"])[0]
-    carry = (X, problem.blur.rfft(X), prox, aux["theta0"], problem.sigma2_init,
-             dict(aux["params0"]))
-    if problem.cfg.sapg.track_posterior_moments:
-        carry += (dict(pm_mean=torch.zeros_like(X), pm_m2=torch.zeros_like(X), pm_count=0.0),)
+    carry = aux["main_carry"]((X, problem.blur.rfft(X), prox), aux["consts"])
     return step, carry, draw
 
 

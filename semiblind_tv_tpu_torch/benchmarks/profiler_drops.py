@@ -37,7 +37,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from semiblind_tv_tpu_torch import _build
-    from semiblind_tv_tpu_torch.benchmarks.step_rates import card_line
+    from semiblind_tv_tpu_torch.benchmarks.probe_prox_variants import card_line
     from semiblind_tv_tpu_torch.ops import fused_step_cuda, tv_cuda
 
     _build.load_library()

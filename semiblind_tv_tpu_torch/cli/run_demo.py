@@ -31,7 +31,7 @@ Chrome trace that Perfetto opens.  A long run resumes from a checkpoint through
 `run_demo(cfg, image, checkpoint_every=N, checkpoint_path=PATH)`.
 
 `--mesh DxC` runs the SAPG phase on a ('data', 'chains') mesh
-(parallel/sapg_parallel.py) and `--space-mesh S` row-splits the image over
+(run_sapg(mesh=)) and `--space-mesh S` row-splits the image over
 a ('space',) mesh (parallel/spatial.run_sapg_spatial; it forces
 fft_mode='dft' and one chain); the MAP solve then runs on each rank.  With
 no world set up the CLI starts the mesh's other ranks itself

@@ -12,9 +12,12 @@ the default group, one rank a device (runtime/distributed.initialize: a
 one-process world when no group exists).  Hyperparameter state is
 replicated along 'chains' and split along 'data'.  Each group the mesh
 makes gets the default group's backend and an explicit timeout.
+`rank_layout` reads a rank's share of a SAPG run from a mesh: the SAPG
+run loop (sapg/estimator.run_sapg_layout) knows no DeviceMesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 from typing import Optional
 
@@ -25,7 +28,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from semiblind_tv_tpu_torch.runtime.distributed import TIMEOUT, group_options, initialize
 
 __all__ = [
-    "make_mesh", "make_spatial_mesh", "axis_size", "mesh_device",
+    "make_mesh", "make_spatial_mesh", "axis_size", "mesh_device", "RankLayout", "rank_layout",
     "DATA_AXIS", "CHAINS_AXIS", "SPACE_AXIS",
 ]
 
@@ -90,3 +93,40 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankLayout:
+    """A rank's share of a SAPG run of D problems × C chains: `problems`,
+    the indices of its problems; `rows`, its rows of each problem's C
+    chains; `n_group`, the S ranks that hold a problem's chains, and their
+    `group` (None for one); the `data_group` of the ranks that hold the
+    other problems (None for one); its `rank` in the world, None where there
+    is no world (one device); its `device`.  The layout of a run on one
+    device holds every problem and chain there."""
+
+    problems: range
+    rows: slice
+    device: torch.device
+    n_group: int = 1
+    group: Optional[dist.ProcessGroup] = None
+    data_group: Optional[dist.ProcessGroup] = None
+    rank: Optional[int] = None
+
+
+def rank_layout(mesh: DeviceMesh, n_problems: int, chains_per_shard: int) -> RankLayout:
+    """This rank's share of n_problems problems of chains_per_shard·S chains
+    each on a ('data', 'chains') mesh: data index d holds the d-th block of
+    n_problems / data problems, chains index c the rows c·chains_per_shard …
+    (c+1)·chains_per_shard − 1 of each."""
+    Dm, S = axis_size(mesh, DATA_AXIS), axis_size(mesh, CHAINS_AXIS)
+    if n_problems % Dm != 0:
+        raise ValueError(f"{n_problems} problems not divisible over data axis {Dm}")
+    D_l, C_l = n_problems // Dm, int(chains_per_shard)
+    di, ci = mesh.get_local_rank(DATA_AXIS), mesh.get_local_rank(CHAINS_AXIS)
+    return RankLayout(
+        problems=range(di * D_l, (di + 1) * D_l), rows=slice(ci * C_l, (ci + 1) * C_l),
+        device=mesh_device(mesh), n_group=S,
+        group=mesh.get_group(CHAINS_AXIS) if S > 1 else None,
+        data_group=mesh.get_group(DATA_AXIS) if Dm > 1 else None, rank=dist.get_rank(),
+    )

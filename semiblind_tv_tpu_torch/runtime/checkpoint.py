@@ -12,8 +12,10 @@ SAPG_algorithm_Guassian.m:250-306, SALSA/runStats.m).  Here:
     without them) is left out: NPZ holds it only as a pickled object array,
     which `load_results` (allow_pickle=False) cannot read back.
   * Mid-run checkpoint/resume of the SAPG scan carry lives with the
-    estimator (`sapg/estimator.py::_save_checkpoint`/`_restore_checkpoint`,
-    driven by run_sapg's checkpoint_every/checkpoint_path).
+    estimator's run loop (`sapg/estimator.py::_save_checkpoint`/
+    `_restore_checkpoint`, one format for one device and for a mesh's
+    ranks, driven by run_sapg's and run_sapg_sharded's
+    checkpoint_every/checkpoint_path).
   * `save_checkpoint_arrays` / `load_checkpoint_arrays` — the persistence
     layer under the mid-run checkpoint: a flat {name: ndarray} dict written
     atomically as NPZ (`backend="npz"`), or as a directory

@@ -107,8 +107,9 @@ class Problem:
     lambda_myula: torch.Tensor
     gamma: torch.Tensor
     gamma_max: torch.Tensor
-    # run_sapg's CUDA graphs of this problem's iterations, kept across runs
-    # (sapg/estimator._loop_for); a replaced problem starts without them
+    # the CUDA graphs of the iterations of runs led by this problem, kept
+    # across runs (sapg/estimator._run_for); a replaced problem starts
+    # without them
     step_graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                           compare=False)
 

@@ -48,7 +48,7 @@ SALSA/callcounter.m:8-16).  Here:
                         `.bytes` (sapg/estimator.py's problem_means, in the
                         span `sapg.allreduce`) and the noise elements each
                         rank draws and keeps, `noise.drawn`/`noise.kept`
-                        (parallel/sapg_parallel.py), and records the spans
+                        (sapg/estimator.SAPGRun.draws), and records the spans
                         `sapg.gather` (the end-of-run gathers) and
                         `world.start` (runtime/distributed.start_world).
   * `trace(dir)`      — a torch.profiler region (CPU, and the card's kernels

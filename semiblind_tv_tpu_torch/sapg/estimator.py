@@ -47,14 +47,17 @@ finds a checkpoint at checkpoint_path skips the warm-up and resumes there,
 on the same trajectory as an uninterrupted run.  A segment whose traces go
 non-finite is rerun from the last checkpoint (run_segmented_scan).
 
-Chains live on the leading dimension; the per-chain SA statistics are
-averaged before the hyperparameter update.  `run_sapg(mesh=)` and
-parallel/sapg_parallel.py run the problem-batched form of the same step
-(make_general_sapg_step(problems=D, chains_group=...)) on each rank of a
-('data', 'chains') mesh.  θ, σ² and the PSF parameters
-are 0-d device tensors, the SA updates use torch.clamp, and the scalar
-traces go into preallocated device tensors that are copied to the host
-once, after the loop: nothing inside the loop waits for the device.
+One run loop runs every SAPG run (run_sapg_layout, SAPGRun): a rank's share
+of D problems × C chains, which parallel/mesh.rank_layout reads from a
+('data', 'chains') mesh (run_sapg(mesh=), parallel/sapg_parallel.py); a
+run on one device is its case of one problem, every chain and no process
+group.  The step is problem-batched (make_general_sapg_step): the chains
+of the problems live on the leading dimension, problem-major, and each
+problem's per-chain SA statistics are averaged before its hyperparameter
+update.  θ, σ² and the PSF parameters are (D,) device tensors, the SA
+updates use torch.clamp, and the scalar traces go into preallocated device
+tensors that are copied to the host once a segment: nothing inside the
+loop waits for the device.
 
 Spans (runtime/profiling.py; recorded only while the recorder is on):
 `sapg.run` around a run, with `sapg.prologue` (set-up, the initial prox and
@@ -71,22 +74,23 @@ its other spans were entered when the graph was captured, under
 `sapg.capture`.
 
 CUDA graphs: where resolve_graph_replay holds (a CUDA device, route 'B'
-with kernel B, fft_mode 'fft', a noise field, no mesh, no posterior
-moments), run_sapg replays each warm-up iteration and each SAPG iteration
-as one CUDA graph captured from the same step (_GraphLoop), kept in
-problem.step_graphs and reused by the problem's next runs; the host then
+with kernel B, fft_mode 'fft', a noise field, no posterior moments), a run
+replays each warm-up iteration and each SAPG iteration as CUDA graphs
+captured from the same step (_GraphIterations): one graph on one device,
+and on a mesh the pieces between the step's all_reduce calls, which run
+eagerly between them.  They are kept in the first problem's step_graphs
+and reused by the next runs of the same problems and layout; the host then
 only draws the noise, copies it into the graph's input and replays.  The
 step holds no host scalar for this: the SA updates read their step
 coefficients from a device table (sa_step_coefficients), and the traces
 are stored at a device index the graph advances.  Every other case runs
-the same step eagerly (the sharded path replays graphs of its own, cut at
-its all_reduce: parallel/sapg_parallel).  The counters `graph.captures`,
-`graph.replays` and `graph.eager_steps` (iterations run without a replay)
-say how often it engages.
+the same step eagerly.  The counters `graph.captures`, `graph.replays` and
+`graph.eager_steps` (iterations run without a replay) say how often it
+engages.
 
 The noise source is injectable: `noise(shape) -> (B, M, N) tensor` is
 called once per warm-up and main step, in that order; the default draws
-standard normals from the estimator's torch.Generator.  With in-kernel
+standard normals from the run's torch.Generator.  With in-kernel
 noise the seed source `seeds(B) -> (B, 2) int32 tensor` is called instead
 (default: `generator_seeds`, the counterpart of the JAX chain_seeds).  Its
 noise realisation differs from the default's, as in the JAX package.
@@ -96,7 +100,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -112,6 +116,7 @@ from semiblind_tv_tpu_torch.ops.fused_step_cuda import (
 from semiblind_tv_tpu_torch.ops.tv import tv_norm
 from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_prox_blocked
 from semiblind_tv_tpu_torch.ops.tv_cuda import chambolle_prox_cuda, chambolle_prox_plain, per_chain
+from semiblind_tv_tpu_torch.parallel.mesh import CHAINS_AXIS, RankLayout, axis_size, rank_layout
 from semiblind_tv_tpu_torch.runtime.checkpoint import load_checkpoint_arrays, save_checkpoint_arrays
 from semiblind_tv_tpu_torch.runtime.problem import Problem
 from semiblind_tv_tpu_torch.runtime import profiling
@@ -122,6 +127,8 @@ __all__ = [
     "SAPGResult",
     "SAPGDivergenceError",
     "run_sapg",
+    "run_sapg_layout",
+    "SAPGRun",
     "make_sapg_step",
     "make_general_sapg_step",
     "problem_consts",
@@ -272,18 +279,15 @@ def resolve_in_kernel_rng(sapg, route: str, fft_mode: str, shape, B: int) -> boo
     )
 
 
-def resolve_graph_replay(sapg, route: str, fft_mode: str, device, shape, B: int,
-                         mesh=None) -> bool:
-    """Whether run_sapg replays its warm-up and SAPG iterations as CUDA
-    graphs: on a CUDA device, on route 'B' with the fused step (kernel B),
-    fft_mode 'fft', a noise field (not the in-kernel noise's seeds), no
-    mesh and no posterior moments (Welford's update branches on the host's
-    ii).  Everywhere else the same step runs eagerly.  The sharded path
-    asks it of each rank's step, with no mesh (parallel/sapg_parallel).
+def resolve_graph_replay(sapg, route: str, fft_mode: str, device, shape, B: int) -> bool:
+    """Whether a run replays its warm-up and SAPG iterations as CUDA graphs:
+    on a CUDA device, on route 'B' with the fused step (kernel B), fft_mode
+    'fft', a noise field (not the in-kernel noise's seeds) and no posterior
+    moments (Welford's update branches on the host's ii).  Everywhere else
+    the same step runs eagerly.  B is a problem's chains on the rank.
     Launches nothing."""
     return bool(
         torch.device(device).type == "cuda"
-        and mesh is None
         and route == "B"
         and sapg.use_fused_step is not False
         and fft_mode == "fft"
@@ -342,18 +346,26 @@ def make_general_sapg_step(
     cfg,
     sigma_fix: bool,
     route: Optional[str] = None,
-    problems: Optional[int] = None,
+    problems: int = 1,
     chains_group=None,
 ):
-    """Build the per-iteration SAPG step as a function of (carry, ii, consts,
-    Z) with consts = dict(yhat, gam, lam, sigma2_lo, sigma2_hi, sigma2_init)
-    and Z the step's (B, M, N) standard-normal field, or its (B, 2) int32
-    seeds where aux["in_kernel_rng"](B) holds.
+    """Build the per-iteration SAPG step of a batch of `problems` problems
+    (the counterpart of the JAX package's vmap over a rank's problems) as a
+    function of (carry, ii, consts, Z) with consts = dict(yhat, gam, lam,
+    sigma2_lo, sigma2_hi, sigma2_init) of the problems (problem_consts) and
+    Z the step's (D·C, M, N) standard-normal field, or its (D·C, 2) int32
+    seeds where aux["in_kernel_rng"](C) holds.
 
     carry = (X, Xhat, prox, theta, sigma2, params) with, under
     track_posterior_moments, a seventh entry extra = dict(pm_mean, pm_m2,
-    pm_count); the step returns (carry, trace) with trace a dict of 0-d
-    device tensors.  ii is the iteration, a host int or, without the
+    pm_count); aux["main_carry"] forms the first.  Every entry of consts,
+    θ, σ², each PSF parameter and each entry of the step's trace has a
+    leading (D,) axis, and the fields are (D·C, M, N) problem-major.  The
+    kernels get γ, λ, λθ and σ² per chain, (D·C,) vectors, in one launch for
+    every chain of every problem; for one problem they get them as they
+    are, (1,), which the kernels read at stride 0.  Each SA statistic is the
+    mean over a problem's chains, summed on the shapes of the problem's own
+    run.  ii is the iteration, a host int or, without the
     posterior moments, a (1,) int64 device tensor: the SA updates read
     their step coefficients (sa_step_coefficients) from a device table at
     column ii, so the step holds no host scalar and a CUDA graph can
@@ -362,18 +374,12 @@ def make_general_sapg_step(
     the prox takes its plain version too — the chip smoke test compares the
     kernels with the plain versions on the card this way.
 
-    problems=D builds the problem-batched step of the sharded path (the
-    counterpart of the JAX package's vmap over a rank's problems): every
-    entry of consts has a leading (D,) axis, θ, σ² and each PSF parameter
-    are (D,), the fields are (D·C, M, N) problem-major, the kernels get γ,
-    λ, λθ and σ² as (D·C,) vectors (one launch for every chain of every
-    problem), and the trace entries are (D,).  Each SA statistic is the mean
-    over a problem's chains; with `chains_group` (a torch.distributed group
-    of S ranks holding the other chains of the same problems) it is then
+    With `chains_group` (a torch.distributed group of S ranks holding the
+    other chains of the same problems) each SA statistic is then
     all-reduced over the group and divided by S — lax.pmean — in one
     all_reduce a step, on the device: aux["all_reduce"](packed), or, while
     aux["cuts"] holds a function, that function, which a piecewise CUDA
-    graph capture ends its graph at (parallel/sapg_parallel)."""
+    graph capture ends its graph at (_GraphIterations)."""
     _check_ported(cfg)
     sapg = cfg.sapg
     dtype = blur.dtype
@@ -386,23 +392,23 @@ def make_general_sapg_step(
     prox_route = "plain" if route == "plain" else resolve_prox_route(blur.shape, device)
     fused = sapg.use_fused_step is not False
 
-    batched = problems is not None
     n_group = 1 if chains_group is None else dist.get_world_size(chains_group)
 
     def by_problem(t):
-        """(D·C, ...) as (D, C, ...) in the batched form."""
-        return t.view(problems, -1, *t.shape[1:]) if batched else t
+        """(D·C, ...) as (D, C, ...)."""
+        return t.view(problems, -1, *t.shape[1:])
 
     def flat(t):
-        return t.reshape(-1, *t.shape[2:]) if batched else t
+        return t.reshape(-1, *t.shape[2:])
 
     def lead(v):
         """A per-problem quantity against by_problem's chain axis."""
-        return v[:, None] if batched else v[None]
+        return v[:, None]
 
     def chains_of(v, C):
-        """A per-problem scalar as the kernels' per-chain vector."""
-        return v.repeat_interleave(C) if batched else v
+        """A per-problem scalar as the kernels' per-chain vector; one
+        problem's (1,) as it is (the kernels broadcast it)."""
+        return v if problems == 1 else v.repeat_interleave(C)
 
     cuts = []
 
@@ -415,17 +421,16 @@ def make_general_sapg_step(
 
     def problem_means(fn, *args):
         """The chain means of the statistics fn(*args) returns, {name: (C,)
-        tensor} of ONE problem's quantities, then their average over the
-        chains group (one all_reduce for all of them).  Batched, fn runs on
-        each problem's slice of the args and the means are stacked to (D,):
-        each problem's sums then take the shapes, and so the order, of its
-        own run (a sum over a larger batch may split otherwise, and the SA
-        loop amplifies a last-bit difference)."""
-        if batched:
-            outs = [fn(*(a[i] for a in args)) for i in range(problems)]
-            out = {k: torch.stack([torch.mean(o[k]) for o in outs]) for k in outs[0]}
-        else:
-            out = {k: torch.mean(v) for k, v in fn(*args).items()}
+        tensor} of ONE problem's quantities, as (D,), then their average over
+        the chains group (one all_reduce for all of them).  fn runs on each
+        problem's slice of the args, so each problem's sums take the shapes,
+        and so the order, of its own run (a sum over a larger batch may split
+        otherwise, and the SA loop amplifies a last-bit difference); one
+        problem's means take the problem axis as a view, not a copy."""
+        means = [{k: torch.mean(v) for k, v in fn(*(a[i] for a in args)).items()}
+                 for i in range(problems)]
+        out = {k: means[0][k][None] if problems == 1 else torch.stack([m[k] for m in means])
+               for k in means[0]}
         if n_group > 1:
             packed = torch.stack(list(out.values()))
             (cuts[-1] if cuts else all_reduce)(packed)
@@ -506,11 +511,11 @@ def make_general_sapg_step(
     def advance(X, prox, ghat, sigma2, Z, gam, lam, lam_theta, positivity, irdft_ok):
         """(Xn, proxn, tv, Xhatn) from Ĝ = conj(H)·R̂, in the JAX package's
         branch order: kernel D, kernel E (not in the warm-up), then the
-        transforms around the spatial segment.  Batched, ghat is (D, C, M,
-        Nh) and the scalars (D,): the kernels get them flat and per chain.
-        The chain-count rules of D and the in-kernel noise see one problem's
+        transforms around the spatial segment.  ghat is (D, C, M, Nh) and
+        the scalars (D,): the kernels get them flat and per chain.  The
+        chain-count rules of D and the in-kernel noise see one problem's
         chains, as the JAX package's vmap over the problems does."""
-        C = X.shape[0] // (problems or 1)
+        C = X.shape[0] // problems
         ghat = flat(ghat)
         gam, lam, lam_theta, sigma2 = (chains_of(v, C) for v in (gam, lam, lam_theta, sigma2))
         ikr = in_kernel_rng(C)
@@ -599,7 +604,7 @@ def make_general_sapg_step(
                 gX=tv,
             )
 
-        Hp = H.expand(problems, *H.shape) if batched and all_fixed else H
+        Hp = H.expand(problems, *H.shape) if all_fixed else H
         with span("sapg.stats"):
             stats = problem_means(chain_stats, Hp, by_problem(Xhatn), yhat, by_problem(tv),
                                   theta, sigma2, *(dHs[n] for n in free_names))
@@ -624,8 +629,7 @@ def make_general_sapg_step(
         params_n = {}
         for s in psf_specs:
             if s.fix:
-                params_n[s.name] = fixed_vals[s.name].expand(problems) if batched \
-                    else fixed_vals[s.name]
+                params_n[s.name] = fixed_vals[s.name].expand(problems)
             elif sapg.psf_log_scale:
                 # log-space update with the chain-rule factor p, clipped in
                 # log space (an extension of the JAX package, opt-in)
@@ -656,8 +660,7 @@ def make_general_sapg_step(
             gX=stats["gX"],
             G_t=G_t,
             G_s=G_s,
-            **{f"G_{n}": G_p.get(n, zero.expand(problems) if batched else zero)
-               for n in psf_names},
+            **{f"G_{n}": G_p.get(n, zero.expand(problems)) for n in psf_names},
             **{n: params_n[n] for n in psf_names},
         )
         carry_n = (Xn, Xhatn, proxn, theta_n, sigma_n, params_n)
@@ -691,6 +694,21 @@ def make_general_sapg_step(
         return problem_means(chain_stats, by_problem(Xhat), consts["yhat"], by_problem(tv),
                              consts["sigma2_init"])["logPi"]
 
+    def main_carry(warm_carry, consts):
+        """The main scan's first carry from the warm-up's last (X, X̂, prox):
+        θ, σ² and the PSF parameters at their initial values, (D,), and
+        under track_posterior_moments zero moments."""
+        def full(v):
+            return torch.full((problems,), v, dtype=dtype, device=device)
+
+        X = warm_carry[0]
+        carry = tuple(warm_carry) + (full(theta_spec.init), consts["sigma2_init"].clone(),
+                                     {k: full(v) for k, v in cfg.init_psf_params().items()})
+        if sapg.track_posterior_moments:
+            carry += (dict(pm_mean=torch.zeros_like(X), pm_m2=torch.zeros_like(X),
+                           pm_count=0.0),)
+        return carry
+
     aux = dict(
         psf_names=psf_names,
         prox_b=prox_b,
@@ -705,40 +723,41 @@ def make_general_sapg_step(
         fuse_dft=fuse_dft,
         in_kernel_rng=in_kernel_rng,
         logpi_init=logpi_init,
+        main_carry=main_carry,
+        chains_of=chains_of,
         all_reduce=all_reduce,
         cuts=cuts,
     )
     return step, aux
 
 
-def problem_consts(problem: Problem):
-    """The per-problem constants consumed by the general SAPG step."""
-    return dict(
-        yhat=problem.yhat,
-        gam=problem.gamma,
-        lam=problem.lambda_myula,
-        sigma2_lo=problem.sigma2_box[0],
-        sigma2_hi=problem.sigma2_box[1],
-        sigma2_init=problem.sigma2_init,
-    )
+def problem_consts(problems: Sequence[Problem]) -> dict:
+    """The constants of the general SAPG step for `problems`, each with a
+    leading problem axis: one problem's as views of its tensors, several
+    problems' stacked."""
+    consts = [dict(yhat=p.yhat, gam=p.gamma, lam=p.lambda_myula, sigma2_lo=p.sigma2_box[0],
+                   sigma2_hi=p.sigma2_box[1], sigma2_init=p.sigma2_init) for p in problems]
+    if len(consts) == 1:
+        return {k: v[None] for k, v in consts[0].items()}
+    return {k: torch.stack([c[k] for c in consts]) for k in consts[0]}
 
 
 def make_sapg_step(problem: Problem, n_chains: int, route: Optional[str] = None):
-    """Per-problem SAPG step: (carry, ii, Z) -> (carry, trace); `route` as in
-    make_general_sapg_step."""
-    cfg = problem.cfg
-    sigma_spec = problem.sigma_spec()
+    """One problem's SAPG step: (carry, ii, Z) -> (carry, trace), the
+    general step of a batch of one problem, so θ, σ² and the PSF
+    parameters of the carry and the trace's entries are (1,);
+    aux["main_carry"]((X, X̂, prox), aux["consts"]) is a main scan's first
+    carry.  `route` as in make_general_sapg_step."""
     gstep, aux = make_general_sapg_step(
-        problem.model, problem.blur, cfg, sigma_fix=sigma_spec.fix, route=route,
+        problem.model, problem.blur, problem.cfg, sigma_fix=problem.sigma_spec().fix,
+        route=route,
     )
-    consts = problem_consts(problem)
+    consts = problem_consts([problem])
 
     def step(carry, ii, Z):
         return gstep(carry, ii, consts, Z)
 
-    aux = dict(aux, lam=problem.lambda_myula, gam=problem.gamma, sigma_spec=sigma_spec,
-               consts=consts)
-    return step, aux
+    return step, dict(aux, lam=problem.lambda_myula, consts=consts)
 
 
 def _host(v) -> np.ndarray:
@@ -751,70 +770,88 @@ def _merge_traces(seg_traces):
     return {k: np.concatenate([tr[k] for tr in seg_traces]) for k in seg_traces[0]}
 
 
-def _save_checkpoint(path: str, carry, done_iters: int, seg_traces, logpi_wu, logpi0,
-                     generator: Optional[torch.Generator] = None,
-                     backend: str = "npz") -> None:
-    """Persist (carry, completed-iteration count, trace segments, warm-up
-    trace, noise state).
+def _state_keys(layout: RankLayout, n: int):
+    """The checkpoint's keys of n generator states."""
+    if layout.rank is None:
+        return ["generator_state"]
+    return [f"generator_state/{i}" for i in range(n)]
+
+
+def _save_checkpoint(path: str, layout: RankLayout, carry, done_iters: int, seg_traces,
+                     logpi_wu, logpi0, generators, backend: str) -> None:
+    """Persist a rank's carry, completed-iteration count, trace segments,
+    warm-up trace and noise state.
 
     The JAX package drops Xhat and recomputes it with blur.rfft (its TPU
     could not copy complex buffers to the host); here Xhat is kept as its
     real and imaginary planes, because on route D it comes from the
     kernel's own forward transform, which differs from blur.rfft in the
-    last bits.  The noise state is the torch.Generator's get_state() (a
-    uint8 array: seed and offset), saved when the run draws its noise from
-    `generator`.  The warm-up trace (logpi_wu, logpi0) rides along so a
-    resumed run can skip the warm-up phase entirely (15k iterations — 43%
-    of the reference budget)."""
+    last bits.  The noise state is each torch.Generator's get_state() (a
+    uint8 array: seed and offset) that the run draws from.  The warm-up
+    trace (logpi_wu, logpi0) rides along so a resumed run can skip the
+    warm-up phase entirely (15k iterations — 43% of the reference budget).
+
+    The layout gives the file's form: a run on one device (no rank) writes
+    its one problem's arrays without the problem axis (0-d θ and σ², 1-D
+    traces) and its generator's state as `generator_state`; a rank of a
+    mesh keeps the axis, keys its arrays `rank<r>/` and its problems'
+    states `generator_state/<i>`."""
     X, Xhat, prox, theta, sigma2, params = carry[:6]
     extra = carry[6] if len(carry) > 6 else {}
-    arrays = {f"trace/{k}": v for k, v in _merge_traces(seg_traces).items()}
+    one = layout.rank is None
+    own = (lambda v: _host(v)[..., 0]) if one else _host   # noqa: E731
+    arrays = {f"trace/{k}": own(v) for k, v in _merge_traces(seg_traces).items()}
     arrays.update(
         X=_host(X),
         Xhat_re=_host(Xhat.real),
         Xhat_im=_host(Xhat.imag),
         prox=_host(prox),
-        theta=_host(theta),
-        sigma2=_host(sigma2),
+        theta=own(theta),
+        sigma2=own(sigma2),
         done_iters=np.asarray(done_iters),
-        logpi_wu=_host(logpi_wu),
-        logpi0=_host(logpi0),
+        logpi_wu=own(logpi_wu),
+        logpi0=own(logpi0),
     )
-    if generator is not None:
-        arrays["generator_state"] = generator.get_state().numpy()
+    arrays.update(zip(_state_keys(layout, len(generators)),
+                      (g.get_state().numpy() for g in generators)))
     for k, v in params.items():
-        arrays[f"param/{k}"] = _host(v)
+        arrays[f"param/{k}"] = own(v)
     for k, v in extra.items():
         arrays[f"extra/{k}"] = _host(v)
-    save_checkpoint_arrays(path, arrays, backend=backend)
+    pre = "" if one else f"rank{layout.rank}/"
+    save_checkpoint_arrays(path, {pre + k: v for k, v in arrays.items()}, backend=backend)
 
 
-def _restore_checkpoint(path: str, device, backend: Optional[str] = None, rfft=None,
-                        generator: Optional[torch.Generator] = None):
-    """Inverse of _save_checkpoint; returns
-    (carry, done_iters, [trace dict], logpi_wu, logpi0).
+def _restore_checkpoint(path: str, layout: RankLayout, generators, backend: str, rfft):
+    """Inverse of _save_checkpoint for this rank: (carry, done_iters,
+    [trace dict], logpi_wu, logpi0), with the problem axis.
 
-    The tensors land on `device`; a saved generator state is set on
-    `generator` (a generator of the problem's device; never reseeded, which
-    would change the stream).  `rfft` (the run's blur.rfft) recomputes Xhat
-    only for a file without its planes."""
-    z = load_checkpoint_arrays(path, backend=backend)
+    The tensors land on the layout's device; a saved generator state is
+    set on its generator (never reseeded, which would change the stream).
+    `rfft` (the run's blur.rfft) recomputes Xhat only for a file without
+    its planes."""
+    one = layout.rank is None
+    pre = "" if one else f"rank{layout.rank}/"
+    z = {k[len(pre):]: v for k, v in
+         load_checkpoint_arrays(path, backend=backend, prefix=pre).items()}
+    own = (lambda a: np.asarray(a)[..., None]) if one else np.asarray   # noqa: E731
 
     def t(a):
-        return torch.from_numpy(np.array(a)).to(device)
+        return torch.from_numpy(np.array(a)).to(layout.device)
 
     X = t(z["X"])
     Xhat = torch.complex(t(z["Xhat_re"]), t(z["Xhat_im"])) if "Xhat_re" in z else rfft(X)
-    params = {k[len("param/"):]: t(z[k]) for k in z if k.startswith("param/")}
-    traces = {k[len("trace/"):]: z[k] for k in z if k.startswith("trace/")}
+    params = {k[len("param/"):]: t(own(z[k])) for k in z if k.startswith("param/")}
+    traces = {k[len("trace/"):]: own(z[k]) for k in z if k.startswith("trace/")}
     extra = {k[len("extra/"):]: float(z[k]) if z[k].ndim == 0 else t(z[k])
              for k in z if k.startswith("extra/")}
-    if generator is not None and "generator_state" in z:
-        generator.set_state(torch.from_numpy(z["generator_state"]))
-    carry = (X, Xhat, t(z["prox"]), t(z["theta"]), t(z["sigma2"]), params)
+    for key, g in zip(_state_keys(layout, len(generators)), generators):
+        if key in z:
+            g.set_state(torch.from_numpy(z[key]))
+    carry = (X, Xhat, t(z["prox"]), t(own(z["theta"])), t(own(z["sigma2"])), params)
     if extra:
         carry += (extra,)
-    return carry, int(z["done_iters"]), [traces], z["logpi_wu"], z["logpi0"]
+    return carry, int(z["done_iters"]), [traces], own(z["logpi_wu"]), own(z["logpi0"])
 
 
 def _traces_finite(tr) -> bool:
@@ -1003,7 +1040,7 @@ def run_sapg(
     _graphs: bool = True,
 ) -> SAPGResult:
     """Run warm-up + SAPG on the problem's device and assemble the full
-    diagnostics bundle.
+    diagnostics bundle: run_sapg_layout for one problem.
 
     noise: the noise source (see the module docstring); by default standard
     normals from `generator` (a torch.Generator on the problem's device).
@@ -1011,13 +1048,13 @@ def run_sapg(
     where the step draws its noise in the kernel; by default
     generator_seeds(generator).
     mesh: a ('data', 'chains') DeviceMesh (parallel/mesh.make_mesh, data
-    axis 1) routes the whole run — warm-up, main scan, checkpointing, EB
-    assembly — through parallel/sapg_parallel.run_sapg_sharded with the
-    n_chains chains split over the mesh's chains axis.  Every rank of the
-    axis draws the whole (n_chains, M, N) field (or the (n_chains, 2) seeds)
-    from its copy of `generator` (or asks `noise`/`seeds` for it) and keeps
-    its own chains' rows, so the trajectory is run_sapg(n_chains)'s up to
-    the order of the cross-chain sums, whatever the layout.
+    axis 1) splits the n_chains chains over the mesh's chains axis
+    (parallel/mesh.rank_layout) for the whole run — warm-up, main scan,
+    checkpointing, EB assembly.  Every rank of the axis draws the whole
+    (n_chains, M, N) field (or the (n_chains, 2) seeds) from its copy of
+    `generator` (or asks `noise`/`seeds` for it) and keeps its own chains'
+    rows, so the trajectory is run_sapg(n_chains)'s up to the order of the
+    cross-chain sums, whatever the layout.
     route: overrides the kernel route (make_general_sapg_step).
 
     checkpoint_every/checkpoint_path enable mid-run checkpoint + resume:
@@ -1034,65 +1071,60 @@ def run_sapg(
     through torch.distributed.checkpoint, runtime/checkpoint.py).
     nan_guard/max_restores/fault_hook: fail-fast divergence supervision —
     see run_segmented_scan; fault_hook(seg_idx, carry) -> carry gets the
-    carry (X, Xhat, prox, θ, σ², params[, extra]); where the iterations
-    replay as CUDA graphs (module docstring) that carry is the graphs'
-    buffers, valid until the next iteration.  _graphs=False runs the step
-    eagerly where the graphs would engage (for tests)."""
-    if mesh is not None:
-        from semiblind_tv_tpu_torch.parallel.mesh import CHAINS_AXIS, axis_size
-        from semiblind_tv_tpu_torch.parallel.sapg_parallel import run_sapg_sharded
-
+    carry (X, Xhat, prox, θ, σ², params[, extra]) with the problem axis:
+    θ, σ² and each PSF parameter are (1,); where the iterations replay as
+    CUDA graphs (module docstring) that carry is the graphs' buffers, valid
+    until the next iteration.  _graphs=False runs the step eagerly where
+    the graphs would engage (for tests)."""
+    if mesh is None:
+        layout = RankLayout(problems=range(1), rows=slice(0, n_chains), device=problem.device)
+    else:
         S = axis_size(mesh, CHAINS_AXIS)
         if n_chains % S != 0:
             raise ValueError(f"n_chains={n_chains} not divisible by mesh chains axis {S}")
-        return run_sapg_sharded(
-            [problem], mesh, [generator], chains_per_shard=n_chains // S, x0=x0,
-            noise=None if noise is None else [noise], seeds=None if seeds is None else [seeds],
-            route=route, checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path,
-            checkpoint_backend=checkpoint_backend, fault_hook=fault_hook, nan_guard=nan_guard,
-            max_restores=max_restores, _graphs=_graphs,
-        )[0]
-    with span("sapg.run"):
-        return _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
-                         checkpoint_every, checkpoint_path, checkpoint_backend, fault_hook,
-                         max_restores, _graphs)
+        layout = rank_layout(mesh, 1, n_chains // S)
+    return run_sapg_layout(
+        [problem], layout, None if generator is None else [generator], x0=x0,
+        noise=None if noise is None else [noise], seeds=None if seeds is None else [seeds],
+        route=route, checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path,
+        checkpoint_backend=checkpoint_backend, fault_hook=fault_hook, nan_guard=nan_guard,
+        max_restores=max_restores, _graphs=_graphs,
+    )[0]
 
 
-class _Loop:
-    """A run's iterations on one device, eagerly.  warm(carry, t, Z) and
-    main(carry, ii, Z) run a warm-up and a SAPG iteration, each storing its
-    trace on the device: logπ at slot t of `logpi_wu`, the step's trace
-    at column ii of `buf` (rows `names`), read back a segment at a time
-    (traces).  warm_iter and main_iter are the iterations themselves, with
-    t and ii host ints or device indices (_GraphLoop captures them)."""
+class _Iterations:
+    """A rank's warm-up and SAPG iterations, eagerly.  warm(carry, t, Z)
+    and main(carry, ii, Z) run one, storing its trace on the device: the
+    warm-up's logπ at column t of `logpi_wu` (D, n_warm), the step's trace
+    at column ii of `buf` (rows `names`, then D), read back a segment at a
+    time (traces).  warm_iter and main_iter are the iterations themselves,
+    with t and ii host ints or device indices (_GraphIterations captures
+    them)."""
 
-    def __init__(self, problem: Problem, n_chains: int, route: Optional[str]):
-        sapg = problem.cfg.sapg
-        self.step, self.aux = make_sapg_step(problem, n_chains, route=route)
-        blur = problem.blur
-        self.dtype, self.device = blur.dtype, problem.device
-        self.shape = (n_chains,) + tuple(blur.shape)
-        self.n_cols = sapg.samples + 1
-        self.logpi_wu = torch.empty((max(sapg.warmup - 1, 0),), dtype=self.dtype,
-                                    device=self.device)
+    def __init__(self, step, aux, consts, blur, D, C_l, n_warm, n_cols):
+        self.step, self.aux, self.consts = step, aux, consts
+        self.n_cols, self.D = n_cols, D
+        self.shape = (D * C_l,) + tuple(blur.shape)
+        self.dtype, self.device = blur.dtype, blur.device
+        self.logpi_wu = torch.empty((D, n_warm), dtype=self.dtype, device=self.device)
         self.names = self.buf = None
 
     def begin(self) -> None:
         """Called as a run starts."""
 
     def warm_iter(self, carry, t, Z):
-        carry, logpi = self.aux["warm_step"](carry, self.aux["consts"], Z)
+        carry, logpi = self.aux["warm_step"](carry, self.consts, Z)
         with span("sapg.trace"):
             _store(self.logpi_wu, t, logpi)
         return carry
 
     def main_iter(self, carry, ii, Z):
-        carry, tr = self.step(carry, ii, Z)
+        carry, tr = self.step(carry, ii, self.consts, Z)
         with span("sapg.trace"):
             if self.buf is None:
                 self.names = list(tr)
-                self.buf = torch.empty((len(self.names), self.n_cols), dtype=self.dtype,
-                                       device=self.device)
+                self.buf = torch.empty((len(self.names), self.D, self.n_cols),
+                                       dtype=self.dtype, device=self.device)
             _store(self.buf, ii, torch.stack([tr[n] for n in self.names]))
         return carry
 
@@ -1104,24 +1136,24 @@ class _Loop:
         counters.add("graph.eager_steps")
         return self.main_iter(carry, ii, Z)
 
-    def traces(self, iis: range) -> Dict[str, np.ndarray]:
-        """The host copy of the traces of iterations iis (one read)."""
+    def traces(self, iis: range) -> dict:
+        """The host copy of the traces of iterations iis, {name: (T, D)}
+        (one read)."""
         if not len(iis):
             return {}
-        host = self.buf[:, iis.start:iis.stop].cpu().numpy()
-        return {n: host[i] for i, n in enumerate(self.names)}
+        host = self.buf[..., iis.start:iis.stop].cpu().numpy()
+        return {n: host[i].T for i, n in enumerate(self.names)}
 
 
-class _GraphLoop(_Loop):
-    """The iterations of run_sapg on one card as two CUDA graphs, one of a
-    warm-up iteration and one of a SAPG iteration, captured once for the
-    problem, the chain count and the route (run_sapg keeps the loop in
-    problem.step_graphs) and replayed by the runs that follow.
+class _GraphIterations(_Iterations):
+    """The iterations as CUDA graphs, one of a warm-up iteration and one of
+    a SAPG iteration, captured once and replayed by the runs that follow
+    (_run_for keeps them in the first problem's step_graphs).
 
     The graphs read and write static buffers: the carry (X, X̂, prox, and θ,
-    σ² and the PSF parameters as views of one vector), the noise field Z
-    and a device index each, which the graph advances.  A replay copies
-    the new carry into the carry buffers as its last operations, so
+    σ² and the PSF parameters as rows of one (2 + P, D) block), the noise
+    field Z and a device index a kind, which the graph advances.  A replay
+    copies the new carry into the carry buffers as its last operations, so
     replays chain with no host work but the draw: the host calls the noise
     source, copies its field into Z and replays.  A carry handed in (the
     run's initial state, a checkpoint restored, fault_hook's) is copied
@@ -1134,36 +1166,35 @@ class _GraphLoop(_Loop):
     same function, under the `sapg.capture` span.  The wrappers' launch
     counts and sweep-count tensors reported during the capture are handed
     to the counters and the recorder once a replay (profiling.capturing,
-    profiling.replayed)."""
+    profiling.replayed).
 
-    def __init__(self, problem: Problem, n_chains: int, route: Optional[str]):
-        super().__init__(problem, n_chains, route)
-        dev, dtype = self.device, self.dtype
-        self.stream = torch.cuda.Stream(dev)
-        X = torch.empty(self.shape, dtype=dtype, device=dev)
-        Xhat = torch.empty(self.shape[:-1] + (self.shape[-1] // 2 + 1,),
-                           dtype=problem.blur.cdtype, device=dev)
+    The step's all_reduce over a chains group stays out of the graphs: the
+    capture ends a graph where the step calls it (aux["cuts"]) and goes on
+    in the next, in the same memory pool, and a replay runs the graphs in
+    turn with the all_reduce of the captured statistics between them,
+    eagerly, as the eager step runs it.  On one device the step makes no
+    cut and a kind is one graph."""
+
+    def __init__(self, step, aux, consts, blur, D, C_l, n_warm, n_cols):
+        super().__init__(step, aux, consts, blur, D, C_l, n_warm, n_cols)
+        dtype, device, shape = self.dtype, self.device, self.shape
+        self.stream = torch.cuda.Stream(device)
+        X = torch.empty(shape, dtype=dtype, device=device)
+        Xhat = torch.empty(shape[:-1] + (shape[-1] // 2 + 1,), dtype=blur.cdtype,
+                           device=device)
         prox = torch.empty_like(X)
-        self.param_names = list(self.aux["params0"])
-        self.scal = torch.empty((2 + len(self.param_names),), dtype=dtype, device=dev)
+        self.param_names = list(aux["params0"])
+        self.scal = torch.empty((2 + len(self.param_names), D), dtype=dtype, device=device)
         self.static = {
             "warm": (X, Xhat, prox),
             "main": (X, Xhat, prox, self.scal[0], self.scal[1],
                      {n: self.scal[2 + i] for i, n in enumerate(self.param_names)}),
         }
         self.Z = torch.empty_like(X)
-        self.index = {k: torch.zeros((1,), dtype=torch.int64, device=dev) for k in self.static}
+        self.index = {k: torch.zeros((1,), dtype=torch.int64, device=device)
+                      for k in self.static}
         self.fns = {"warm": self.warm_iter, "main": self.main_iter}
-        self.graphs = {}
-        self.next = {}
-
-    def _pairs(self, kind, carry):
-        """(buffer, value) of each tensor of a carry."""
-        static = self.static[kind]
-        pairs = list(zip(static[:5], carry[:5]))
-        if kind == "main":
-            pairs += [(static[5][n], carry[5][n]) for n in self.param_names]
-        return pairs
+        self.graphs, self.next = {}, {}
 
     def begin(self) -> None:
         self.next = {}
@@ -1173,6 +1204,14 @@ class _GraphLoop(_Loop):
 
     def main(self, carry, ii: int, Z):
         return self._iterate("main", carry, ii, Z)
+
+    def _pairs(self, kind, carry):
+        """(buffer, value) of each tensor of a carry."""
+        static = self.static[kind]
+        pairs = list(zip(static[:5], carry[:5]))
+        if kind == "main":
+            pairs += [(static[5][n], carry[5][n]) for n in self.param_names]
+        return pairs
 
     def _iterate(self, kind, carry, i, Z):
         if kind not in self.graphs:
@@ -1190,20 +1229,34 @@ class _GraphLoop(_Loop):
         if self.next.get(kind) != i:
             self.index[kind].fill_(i)
         self.Z.copy_(Z)
-        graph, captured = self.graphs[kind]
-        graph.replay()
+        pieces, sums, captured = self.graphs[kind]
+        for k, graph in enumerate(pieces):
+            graph.replay()
+            if k < len(sums):
+                self.aux["all_reduce"](sums[k])
         self.next[kind] = i + 1
         counters.add("graph.replays")
         profiling.replayed(captured)
         return self.static[kind]
 
     def _capture(self, kind) -> None:
-        static = self.static[kind]
-        graph = torch.cuda.CUDAGraph()
+        static, pool = self.static[kind], torch.cuda.graph_pool_handle()
+        pieces, sums = [], []
+
+        def begin():
+            pieces.append(torch.cuda.CUDAGraph())
+            pieces[-1].capture_begin(pool=pool, capture_error_mode="thread_local")
+
+        def cut(packed):
+            pieces[-1].capture_end()
+            sums.append(packed)
+            begin()
+
         with span("sapg.capture"), profiling.capturing() as captured, \
                 torch.cuda.stream(self.stream):
-            graph.capture_begin(capture_error_mode="thread_local")
+            self.aux["cuts"].append(cut)
             try:
+                begin()
                 out = self.fns[kind](static, self.index[kind], self.Z)
                 for buf, value in zip(static[:3], out[:3]):
                     buf.copy_(value)
@@ -1213,152 +1266,266 @@ class _GraphLoop(_Loop):
                 self.index[kind].add_(1)
             except BaseException:
                 try:
-                    graph.capture_end()
+                    pieces[-1].capture_end()
                 except RuntimeError:
                     pass   # the capture was invalidated by the error raised
                 raise
-            graph.capture_end()
+            finally:
+                self.aux["cuts"].pop()
+            pieces[-1].capture_end()
         counters.add("graph.captures")
-        self.graphs[kind] = (graph, captured)
+        self.graphs[kind] = (pieces, sums, captured)
 
 
-def _loop_for(problem: Problem, n_chains: int, route: Optional[str], graphs: bool) -> _Loop:
-    """The run's loop: a _GraphLoop where resolve_graph_replay holds (the
-    one kept in problem.step_graphs for this chain count and route, or a
-    new one kept there in place of any other), else an eager _Loop."""
-    blur, sapg = problem.blur, problem.cfg.sapg
-    r = resolve_step_route(blur.shape, problem.device) if route is None else route
-    if not (graphs and resolve_graph_replay(sapg, r, blur.fft_mode, problem.device, blur.shape,
-                                            n_chains)):
-        return _Loop(problem, n_chains, route)
-    key = (n_chains, r)
-    loop = problem.step_graphs.get(key)
-    if loop is None:
-        problem.step_graphs.clear()
-        loop = problem.step_graphs[key] = _GraphLoop(problem, n_chains, route)
-    return loop
+class SAPGRun:
+    """A rank's share of a SAPG run of D problems × C chains on `layout`
+    (parallel/mesh.RankLayout): the problem-batched step of its problems
+    and its rows of their chains, the step's iterations, the noise draws,
+    the warm-up, the main scan's segments and its problems' results.
+    `warmup` and `samples` override cfg.sapg's (the bare stepper passes 1
+    and its step count: no warm-up iterations).  `graphs`: the iterations
+    replay as CUDA graphs (_GraphIterations) where resolve_graph_replay
+    holds for the step, else they run eagerly."""
 
+    def __init__(self, problems: Sequence[Problem], layout: RankLayout,
+                 route: Optional[str] = None, warmup: Optional[int] = None,
+                 samples: Optional[int] = None, graphs: bool = False):
+        p0 = problems[0]
+        for p in problems:
+            if p.device != layout.device:
+                raise ValueError(f"problem on {p.device}, this rank's device is {layout.device}")
+        self.problems, self.layout, self.route = list(problems), layout, route
+        self.cfg, self.blur = p0.cfg, p0.blur
+        self.shape = tuple(self.blur.shape)
+        self.chains = layout.rows.stop - layout.rows.start   # C_l, the rank's of a problem
+        self.n_chains = self.chains * layout.n_group          # C
+        D = len(layout.problems)
+        sapg = self.cfg.sapg
+        self.n_warm = max((sapg.warmup if warmup is None else warmup) - 1, 0)
+        self.step, self.aux = make_general_sapg_step(
+            p0.model, self.blur, self.cfg, sigma_fix=p0.sigma_spec().fix, route=route,
+            problems=D, chains_group=layout.group,
+        )
+        self.consts = problem_consts([problems[d] for d in layout.problems])
+        graphs = graphs and resolve_graph_replay(sapg, self.aux["route"], self.blur.fft_mode,
+                                                 layout.device, self.shape, self.chains)
+        self.iterations = (_GraphIterations if graphs else _Iterations)(
+            self.step, self.aux, self.consts, self.blur, D, self.chains, self.n_warm,
+            (sapg.samples if samples is None else samples) + 1)
 
-def _run_sapg(problem, generator, n_chains, x0, noise, nan_guard, route, seeds,
-              checkpoint_every, checkpoint_path, checkpoint_backend, fault_hook, max_restores,
-              graphs):
-    """run_sapg on one device, inside its `sapg.run` span."""
-    with span("sapg.prologue"):
-        cfg = problem.cfg
-        sapg = cfg.sapg
-        blur = problem.blur
-        dtype = blur.dtype
-        device = problem.device
-        loop = _loop_for(problem, n_chains, route, graphs)
-        loop.begin()
-        aux = loop.aux
-        shape = loop.shape
-        source_generator = None  # the generator whose state is the noise state
-        if aux["in_kernel_rng"](n_chains):
-            if seeds is None:
-                if generator is None:
-                    raise ValueError("run_sapg needs a generator or a seed source")
-                seeds = generator_seeds(generator, device)
-                source_generator = generator
-            draw = lambda: seeds(n_chains)  # noqa: E731
-        else:
-            if noise is None:
-                if generator is None:
-                    raise ValueError("run_sapg needs a generator or a noise source")
-                noise = generator_noise(generator, dtype, device)
-                source_generator = generator
-            draw = lambda: noise(shape)  # noqa: E731
-
-        psf_names = aux["psf_names"]
-        prox_b, tv_b, pnorm2 = aux["prox_b"], aux["tv_b"], aux["pnorm2"]
-        lam = aux["lam"]
-        theta0, params0, H0 = aux["theta0"], aux["params0"], aux["H0"]
-        sigma0 = problem.sigma2_init
-        yhat = problem.yhat
-
+    def init_x(self, x0=None) -> torch.Tensor:
+        """X0 (D·C_l, M, N): each problem's y (op.X0's default,
+        SAPG_algorithm_Guassian.m:10-12), or x0 for every problem."""
+        D = len(self.layout.problems)
         if x0 is None:
-            x0 = problem.y  # op.X0 defaults to y (SAPG_algorithm_Guassian.m:10-12)
-        X = torch.as_tensor(x0, dtype=dtype, device=device).expand(shape).contiguous()
-
-        n_warm = max(sapg.warmup - 1, 0)
-
-        t0 = time.perf_counter()
-        resume = checkpoint_path is not None and os.path.exists(checkpoint_path)
-        if resume:
-            # the checkpoint carries the warm-up trace — skip the warm-up phase
-            # entirely; restore_fn below supplies the carry
-            carry = logpi_wu = logpi0 = None
+            ys = torch.stack([self.problems[d].y for d in self.layout.problems])
         else:
-            prox = prox_b(X, lam * theta0)[0]
-            Xhat = blur.rfft(X)
-            logpi_wu = loop.logpi_wu
-            carry = (X, Xhat, prox)
-    if not resume:
+            ys = torch.as_tensor(x0, dtype=self.blur.dtype, device=self.layout.device)
+            ys = ys.expand((D,) + self.shape)
+        return ys[:, None].expand((D, self.chains) + self.shape).reshape(
+            (D * self.chains,) + self.shape).contiguous()
+
+    def start(self, X):
+        """The warm-up's first carry (X, X̂, prox) from X; the initial prox
+        (A2 on the card) takes λθ₀ of each problem."""
+        lam_theta = self.aux["chains_of"](self.consts["lam"] * self.aux["theta0"], self.chains)
+        return X, self.blur.rfft(X), self.aux["prox_b"](X, lam_theta)[0]
+
+    def draws(self, generators=None, noise=None, seeds=None):
+        """(draw, the generators drawn from): draw() is one step's noise for
+        the rank's chains, each of its problems' whole field (or seeds), its
+        rows kept, from the problem's source: noise[d]((C, M, N)) or
+        seeds[d](C), else normals (seeds) from generators[d] (one
+        torch.Generator for one problem will do).  Seeds or normals as the
+        step's rule picks them for one problem's chains on the rank."""
+        layout, C = self.layout, self.n_chains
+        shape = (C,) + self.shape
+        gens = [generators] if isinstance(generators, torch.Generator) else list(generators or [])
+        if gens and len(gens) != len(self.problems):
+            raise ValueError(f"{len(gens)} generators for {len(self.problems)} problems")
+        ikr = self.aux["in_kernel_rng"](self.chains)
+        user = seeds if ikr else noise
+        sources, drawn_from = [], []
+        for d in layout.problems:
+            if user is not None:
+                src = user[d]
+            else:
+                g = gens[d] if gens else None
+                if g is None:
+                    raise ValueError("a SAPG run needs a generator or a "
+                                     f"{'seed' if ikr else 'noise'} source for each problem")
+                drawn_from.append(g)
+                src = (generator_seeds(g, layout.device) if ikr
+                       else generator_noise(g, self.blur.dtype, layout.device))
+            sources.append((lambda s=src: s(C)) if ikr else (lambda s=src: s(shape)))
+
+        def kept(field):
+            """The rank's rows of a problem's whole field; counts the
+            elements drawn and kept (`noise.drawn`, `noise.kept`)."""
+            part = field[layout.rows]
+            counters.add("noise.drawn", field.numel())
+            counters.add("noise.kept", part.numel())
+            return part
+
+        def draw():
+            parts = [src() if layout.n_group == 1 else kept(src()) for src in sources]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        return draw, drawn_from
+
+    def warm(self, carry, draw):
+        """Warm-up (SAPG_algorithm_Guassian.m:67-93) from start's carry:
+        (the main scan's first carry, logpi_wu (n_warm, D), logpi0 (D,))."""
+        its, aux = self.iterations, self.aux
         with span("sapg.warmup"):
-            for t in range(n_warm):
+            for t in range(self.n_warm):
                 with span("sapg.warm_step"):
                     with span("sapg.noise"):
                         Z = draw()
-                    carry = loop.warm(carry, t, Z)
-        X, Xhat, prox = carry
-        # logPiTraceX(1) = logPi at the warm-start sample with the init params
-        res2_0 = pnorm2(H0[None] * Xhat - yhat[None])
-        logpi0 = torch.mean(-res2_0 / (2.0 * sigma0) - theta0 * tv_b(X))
-        carry = (X, Xhat, prox, theta0, sigma0, dict(params0))
-        if sapg.track_posterior_moments:
-            carry += (dict(pm_mean=torch.zeros_like(X), pm_m2=torch.zeros_like(X),
-                           pm_count=0.0),)
+                    carry = its.warm(carry, t, Z)
+            X, Xhat, _ = carry
+            # logPiTraceX(1): logPi at the warm-start sample with the init params
+            logpi0 = aux["logpi_init"](Xhat, aux["tv_b"](X), self.consts)
+            return aux["main_carry"](carry, self.consts), its.logpi_wu.T, logpi0
 
-    def scan_seg(carry, iis):
+    def scan(self, carry, iis, draw):
+        """The main iterations iis (a range); host traces {name: (T, D)},
+        read back once."""
         with span("sapg.segment"):
             for ii in iis:
                 with span("sapg.step"):
                     with span("sapg.noise"):
                         Z = draw()
-                    carry = loop.main(carry, ii, Z)
-            return carry, loop.traces(iis)
+                    carry = self.iterations.main(carry, ii, Z)
+            return carry, self.iterations.traces(iis)
 
-    def restore():
-        nonlocal logpi_wu, logpi0
-        carry, done, traces, logpi_wu, logpi0 = _restore_checkpoint(
-            checkpoint_path, device, backend=checkpoint_backend, rfft=blur.rfft,
-            generator=source_generator,
+    def gather_chains(self, v: np.ndarray) -> np.ndarray:
+        """(D·C_l, M, N) of this rank → (D, C, M, N), the chains of the
+        group's ranks in chains order."""
+        shape = (len(self.layout.problems), self.chains) + v.shape[1:]
+        if self.layout.group is None:
+            return v.reshape(shape)
+        parts = [None] * self.layout.n_group
+        with span("sapg.gather"):
+            dist.all_gather_object(parts, v, group=self.layout.group)
+            return np.concatenate([p.reshape(shape) for p in parts], axis=1)
+
+    def gather_data(self, items: list) -> list:
+        """The per-problem items of every data index, in problem order."""
+        group = self.layout.data_group
+        if group is None:
+            return items
+        parts = [None] * dist.get_world_size(group)
+        with span("sapg.gather"):
+            dist.all_gather_object(parts, items, group=group)
+        return [x for p in parts for x in p]
+
+    def assemble(self, carry, traces, logpi_wu, logpi0, exec_time: float) -> List[SAPGResult]:
+        """Every problem's SAPGResult, on every rank: the chains' final
+        states gathered over the chains group, the problems over the data
+        group."""
+        logpi_wu, logpi0 = _host(logpi_wu), _host(logpi0)
+        X_all = self.gather_chains(_host(carry[0]))
+        extra = carry[6] if len(carry) > 6 else {}
+        moments = {k: self.gather_chains(_host(v)) for k, v in extra.items() if k != "pm_count"}
+        results = []
+        for i, d in enumerate(self.layout.problems):
+            extra_d = {k: v[i] for k, v in moments.items()}
+            if extra:
+                extra_d["pm_count"] = extra["pm_count"]
+            results.append(assemble_result(
+                self.problems[d], self.aux["psf_names"], {k: v[:, i] for k, v in traces.items()},
+                logpi_wu[:, i] if self.n_warm > 0 else np.zeros(0), float(logpi0[i]),
+                X_all[i], extra_d, exec_time,
+            ))
+        return self.gather_data(results)
+
+
+def _run_for(problems, layout: RankLayout, route: Optional[str], graphs: bool) -> SAPGRun:
+    """The SAPGRun of a run: where its iterations replay as CUDA graphs,
+    the one kept in the first problem's step_graphs for these problems,
+    layout and route (a new one kept there in place of any other), else a
+    new one."""
+    kept = problems[0].step_graphs.get("run") if graphs else None
+    if kept is not None and kept.layout == layout and kept.route == route \
+            and len(kept.problems) == len(problems) \
+            and all(a is b for a, b in zip(kept.problems, problems)):
+        run = kept
+    else:
+        run = SAPGRun(problems, layout, route, graphs=graphs)
+        if isinstance(run.iterations, _GraphIterations):
+            problems[0].step_graphs.clear()
+            problems[0].step_graphs["run"] = run
+    run.iterations.begin()
+    return run
+
+
+def run_sapg_layout(
+    problems: Sequence[Problem],
+    layout: RankLayout,
+    generators=None,
+    x0=None,
+    noise: Optional[Sequence[Callable]] = None,
+    seeds: Optional[Sequence[Callable]] = None,
+    route: Optional[str] = None,
+    checkpoint_every: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_backend: str = "npz",
+    fault_hook=None,
+    nan_guard: bool = True,
+    max_restores: int = 1,
+    _graphs: bool = True,
+) -> List[SAPGResult]:
+    """The SAPG run loop (SAPG_algorithm_Guassian.m:67-306): warm-up, main
+    scan with the full trace bundle, per-problem EB extraction through
+    assemble_result, posterior moments, mid-run checkpoint/resume and the
+    NaN guard through run_segmented_scan, for the rank's share of
+    `problems` on `layout`; one SAPGResult per problem, on every rank.
+    run_sapg runs one problem on one device (or a mesh) through it, and
+    parallel/sapg_parallel.run_sapg_sharded a mesh's problems; their
+    docstrings describe the arguments (generators, noise and seeds one a
+    problem).  A world of more than one process checkpoints to a directory
+    (checkpoint_backend "orbax"), every rank writing its own arrays."""
+    if layout.rank is not None and dist.get_world_size() > 1 and checkpoint_backend == "npz" \
+            and checkpoint_path is not None:
+        raise ValueError("a multi-process run checkpoints to a directory: "
+                         "checkpoint_backend='orbax'")
+    with span("sapg.run"):
+        with span("sapg.prologue"):
+            run = _run_for(problems, layout, route, _graphs)
+            draw, gens = run.draws(generators, noise, seeds)
+            t0 = time.perf_counter()
+            resume = checkpoint_path is not None and os.path.exists(checkpoint_path)
+            logpi = {}
+            if not resume:
+                carry = run.start(run.init_x(x0))
+        if resume:
+            carry = None   # restore_fn supplies it, with the warm-up trace
+        else:
+            carry, logpi["wu"], logpi["0"] = run.warm(carry, draw)
+
+        def restore():
+            carry, done, traces, logpi["wu"], logpi["0"] = _restore_checkpoint(
+                checkpoint_path, layout, gens, checkpoint_backend, run.blur.rfft)
+            return carry, done, traces
+
+        def save(carry, done, seg_traces):
+            _save_checkpoint(checkpoint_path, layout, carry, done, seg_traces, logpi["wu"],
+                             logpi["0"], gens, checkpoint_backend)
+
+        carry, seg_traces = run_segmented_scan(
+            lambda c, iis: run.scan(c, iis, draw), carry, run.cfg.sapg.samples,
+            checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path, save_fn=save,
+            restore_fn=restore, fault_hook=fault_hook, nan_guard=nan_guard,
+            max_restores=max_restores,
         )
-        return carry, done, traces
-
-    def save(carry, done, seg_traces):
-        _save_checkpoint(checkpoint_path, carry, done, seg_traces, logpi_wu, logpi0,
-                         generator=source_generator, backend=checkpoint_backend)
-
-    carry, seg_traces = run_segmented_scan(
-        scan_seg,
-        carry,
-        sapg.samples,
-        checkpoint_every=checkpoint_every,
-        checkpoint_path=checkpoint_path,
-        save_fn=save,
-        restore_fn=restore,
-        fault_hook=fault_hook,
-        nan_guard=nan_guard,
-        max_restores=max_restores,
-    )
-    with span("sapg.assemble"):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        exec_time = time.perf_counter() - t0
-        fold_sweeps()
-        traces = _merge_traces(seg_traces) if seg_traces else {}
-
-        return assemble_result(
-            problem,
-            psf_names,
-            traces,
-            _host(logpi_wu) if n_warm > 0 else np.zeros(0),
-            float(logpi0),
-            _host(carry[0]),
-            carry[6] if len(carry) > 6 else {},
-            exec_time,
-        )
+        with span("sapg.assemble"):
+            if layout.device.type == "cuda":
+                torch.cuda.synchronize(layout.device)
+            exec_time = time.perf_counter() - t0
+            fold_sweeps()
+            traces = _merge_traces(seg_traces) if seg_traces else {}
+            return run.assemble(carry, traces, logpi["wu"], logpi["0"], exec_time)
 
 
 def _psf_error_trace(problem: Problem, psf_traces: Dict[str, np.ndarray]) -> np.ndarray:

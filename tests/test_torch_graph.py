@@ -1,5 +1,5 @@
 """The capture-safe SAPG step and the rule that replays it as CUDA graphs,
-on the CPU (sapg/estimator.py: sa_step_coefficients, _Loop,
+on the CPU (sapg/estimator.py: sa_step_coefficients, _Iterations,
 resolve_graph_replay; runtime/profiling.py: capturing, replayed).
 
 * The SA updates' coefficient table is, column for column, the float32
@@ -9,11 +9,14 @@ resolve_graph_replay; runtime/profiling.py: capturing, replayed).
   θ, σ², PSF-parameter and logπ traces and X_last, bit for bit, as the same
   run with those Python floats (today's formulas), for the Gaussian
   (pinned) and Moffat (free) presets with the log-scale options off and on.
-* The step and its trace store with device indices (what a graph
-  captures) equal the same with host ints, bit for bit; so do the sharded
-  path's problem-batched iterations (parallel/sapg_parallel._Iterations).
+* The iterations and their trace store with device indices (what a graph
+  captures) equal the same with host ints, bit for bit, for one problem and
+  for two problems batched (estimator._Iterations).
+* One problem's warm-up and SAPG iterations dispatch the non-view
+  operations of the one-card step that held θ and σ² as 0-d tensors, and
+  not the copies the problem-batched form made for a batch of one.
 * The engagement rule takes the graphs only on a CUDA device, route 'B',
-  fft_mode 'fft', a noise field, no mesh and no posterior moments.
+  fft_mode 'fft', a noise field and no posterior moments.
 * A capture's launch and sweep reports leave the counters as they were and
   are handed over once a replay; an eager run counts every iteration in
   `graph.eager_steps`.
@@ -21,12 +24,15 @@ resolve_graph_replay; runtime/profiling.py: capturing, replayed).
 The CUDA graphs themselves are held against the eager run on the card
 (tests/test_torch_on_card.py).
 """
+import collections
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 
+from semiblind_tv_tpu_torch.parallel.mesh import RankLayout
 from semiblind_tv_tpu_torch.runtime import config as tcfg
 from semiblind_tv_tpu_torch.runtime import profiling
 from semiblind_tv_tpu_torch.runtime.problem import build_problem
@@ -105,58 +111,92 @@ def test_table_step_equals_todays_formulas_bit_for_bit(name, logs, monkeypatch):
     assert len(np.unique(table.thetas)) == len(table.thetas)
 
 
+def _run_of(problems, chains):
+    layout = RankLayout(problems=range(len(problems)), rows=slice(0, chains),
+                        device=torch.device("cpu"))
+    return est.SAPGRun(problems, layout, warmup=5, samples=12)
+
+
+@pytest.mark.parametrize("D", [1, 2], ids=["one problem", "two problems"])
 @pytest.mark.parametrize("name", ["gaussian", "moffat"])
-def test_device_indices_give_the_host_index_results(name):
-    problem = _problem(_cfg(name, samples=12, warmup=5))
-    g = torch.Generator().manual_seed(2)
-    Zs = [torch.randn((2, SIZE, SIZE), generator=g) for _ in range(15)]
-    outs = []
-    for device_index in (False, True):
-        loop = est._Loop(problem, 2, None)
-        at = (lambda i: torch.tensor([i])) if device_index else (lambda i: i)
-        X = problem.y.expand(2, SIZE, SIZE).contiguous()
-        carry = (X, problem.blur.rfft(X), X.clone())
-        for t in range(4):
-            carry = loop.warm_iter(carry, at(t), Zs[t])
-        carry = carry + (loop.aux["theta0"], problem.sigma2_init, dict(loop.aux["params0"]))
-        for ii in range(2, 13):
-            carry = loop.main_iter(carry, at(ii), Zs[ii + 2])
-        outs.append([loop.logpi_wu.clone(), loop.buf[:, 2:].clone(), carry[0], carry[3],
-                     carry[4], *carry[5].values()])
-    assert all(torch.equal(a, b) for a, b in zip(*outs))
-
-
-def test_sharded_iterations_at_device_indices_give_the_host_index_results():
-    from semiblind_tv_tpu_torch.parallel.sapg_parallel import _Iterations, stack_problem_consts
-
-    cfg = _cfg("moffat", samples=12, warmup=5)
+def test_device_indices_give_the_host_index_results(name, D):
+    cfg = _cfg(name, samples=12, warmup=5)
     problems = [_problem(cfg), build_problem(synthetic_wheel(SIZE), cfg, dtype=torch.float32,
-                                             device="cpu", noise=np.ones((SIZE, SIZE)))]
-    p0, D, C = problems[0], 2, 2
+                                             device="cpu", noise=np.ones((SIZE, SIZE)))][:D]
+    C = 2
     g = torch.Generator().manual_seed(3)
     Zs = [torch.randn((D * C, SIZE, SIZE), generator=g) for _ in range(15)]
-    consts = stack_problem_consts(problems)
     outs = []
     for device_index in (False, True):
-        step, aux = est.make_general_sapg_step(p0.model, p0.blur, cfg,
-                                               sigma_fix=p0.sigma_spec().fix, problems=D)
-        its = _Iterations(step, aux, consts, p0.blur, D, C, 4, 13)
+        run = _run_of(problems, C)
+        its = run.iterations
         at = (lambda i: torch.tensor([i])) if device_index else (lambda i: i)
-        X = torch.stack([p.y for p in problems]).repeat_interleave(C, 0)
-        carry = (X, p0.blur.rfft(X), X.clone())
+        carry = run.start(run.init_x())
         for t in range(4):
             carry = its.warm_iter(carry, at(t), Zs[t])
-        carry = carry + (aux["theta0"].expand(D).clone(), consts["sigma2_init"].clone(),
-                         {k: v.expand(D).clone() for k, v in aux["params0"].items()})
+        carry = run.aux["main_carry"](carry, run.consts)
         for ii in range(2, 13):
             carry = its.main_iter(carry, at(ii), Zs[ii + 2])
         outs.append([its.logpi_wu.clone(), its.buf[..., 2:].clone(), carry[0], carry[3],
                      carry[4], *carry[5].values()])
         traces = its.traces(range(2, 13))
-        assert traces["theta"].shape == (11, D)
+        assert traces["theta"].shape == (11, D) and carry[3].shape == (D,)
         np.testing.assert_array_equal(traces["theta"], its.buf[its.names.index("theta"), :, 2:]
                                       .numpy().T)
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+class _CountOps(TorchDispatchMode):
+    """The non-view aten operations dispatched under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.ops[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+# (warm-up, SAPG) iteration of the one-card step that carried θ, σ² and the
+# PSF parameters as 0-d tensors, counted as below on the code before the one
+# run loop, B = 1 and 16 alike; the problem-batched step then added 4 clones
+# and 5 (Gaussian) or 8 (Moffat) stacks to these for a batch of one problem
+PARENT_OPS = {"gaussian": (23, 43), "moffat": (23, 136)}
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("name", ["gaussian", "moffat"])
+def test_one_problem_iteration_dispatches_the_parents_ops(name, B, monkeypatch):
+    """The spatial segment's plain version stands for the kernel, one
+    launch on the card: it runs outside the count, and is counted apart."""
+    cfg = _cfg(name, samples=12, warmup=5)
+    problem = _problem(cfg)
+    assert problem.cfg.psf_params[0].fix == (name == "gaussian")
+    kernel, calls = est.myula_prox_tv_plain, []
+
+    def one_launch(*a, **k):
+        calls.append(1)
+        with _disable_current_modes():
+            return kernel(*a, **k)
+
+    monkeypatch.setattr(est, "myula_prox_tv_plain", one_launch)
+    run = _run_of([problem], B)
+    its = run.iterations
+    g = torch.Generator().manual_seed(1)
+    carry = its.warm_iter(run.start(run.init_x()), 0, torch.randn((B, SIZE, SIZE), generator=g))
+    Z = torch.randn((B, SIZE, SIZE), generator=g)
+    with _CountOps() as warm:
+        carry = its.warm_iter(carry, 1, Z)
+    carry = its.main_iter(run.aux["main_carry"](carry, run.consts), 2,
+                          torch.randn((B, SIZE, SIZE), generator=g))
+    Z = torch.randn((B, SIZE, SIZE), generator=g)
+    with _CountOps() as main:
+        its.main_iter(carry, 3, Z)
+    assert len(calls) == 4
+    assert (sum(warm.ops.values()), sum(main.ops.values())) == PARENT_OPS[name], (warm.ops,
+                                                                                 main.ops)
 
 
 CUDA = torch.device("cuda")
@@ -168,7 +208,6 @@ ENGAGE = [
     ("route I", dict(route="I"), False),
     ("dft", dict(fft_mode="dft"), False),
     ("in-kernel noise", dict(in_kernel_rng=True), False),
-    ("mesh", dict(mesh=object()), False),
     ("Welford", dict(track_posterior_moments=True), False),
     ("unfused step", dict(use_fused_step=False), False),
 ]
@@ -180,7 +219,7 @@ def test_graph_replay_rule(case, kw, want):
         k: v for k, v in kw.items() if k in ("in_kernel_rng", "track_posterior_moments",
                                              "use_fused_step")})
     got = est.resolve_graph_replay(sapg, kw.get("route", "B"), kw.get("fft_mode", "fft"),
-                                   kw.get("device", CUDA), (512, 512), 1, mesh=kw.get("mesh"))
+                                   kw.get("device", CUDA), (512, 512), 1)
     assert got is want
 
 

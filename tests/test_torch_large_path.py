@@ -63,8 +63,9 @@ def test_log_scale_step_matches_jax(option):
               jp.sigma2_init, params0, {})
     tstep, taux = make_sapg_step(tp, n_chains=1)
     T0 = tp.y[None]
-    tcarry = (T0, torch.fft.rfft2(T0), taux["prox_b"](T0, taux["lam"] * taux["theta0"])[0],
-              taux["theta0"], tp.sigma2_init, dict(taux["params0"]))
+    tcarry = taux["main_carry"](
+        (T0, torch.fft.rfft2(T0), taux["prox_b"](T0, taux["lam"] * taux["theta0"])[0]),
+        taux["consts"])
     draws = jax_chain_draws(key, 1, x.shape, 3)
     for ii, Z in zip((2, 3, 4), draws):
         jcarry, jtr = jstep(jcarry, jnp.float64(ii))

@@ -472,7 +472,7 @@ def test_data_axis_auto_rules_see_one_problems_chains(monkeypatch):
     runs and no seeds are drawn.  The batched step takes D's wrapper on
     every step, the rank's noise source draws normals, and each problem's
     trajectory equals its own two-chain run on the same noise (EXACT)."""
-    from semiblind_tv_tpu_torch.parallel import sapg_parallel as sp
+    from semiblind_tv_tpu_torch.parallel.mesh import RankLayout
     from semiblind_tv_tpu_torch.sapg import estimator as est
 
     D, Cl, steps = 2, 2, 6
@@ -489,9 +489,9 @@ def test_data_axis_auto_rules_see_one_problems_chains(monkeypatch):
     monkeypatch.setattr(est, "myula_prox_tv_dft", spy("D", est.myula_prox_tv_dft))
     monkeypatch.setattr(est, "myula_prox_tv_rng", spy("C", est.myula_prox_tv_rng))
     monkeypatch.setattr(est, "myula_prox_tv", spy("B", est.myula_prox_tv))
-    p0 = problems[0]
-    step, aux = est.make_general_sapg_step(p0.model, p0.blur, cfg, p0.sigma_spec().fix,
-                                           route="B", problems=D)
+    run = est.SAPGRun(problems, RankLayout(problems=range(D), rows=slice(0, Cl),
+                                           device=torch.device("cpu")), route="B")
+    step, aux, consts = run.step, run.aux, run.consts
     assert aux["fuse_dft"](Cl) and not aux["in_kernel_rng"](Cl)
 
     rng = np.random.default_rng(7)
@@ -501,22 +501,10 @@ def test_data_axis_auto_rules_see_one_problems_chains(monkeypatch):
     def no_seeds(n):
         raise AssertionError("seeds drawn where JAX draws normals")
 
-    built = dict(aux=aux, local=list(range(D)), rows=slice(0, Cl), n_chains=Cl,
-                 chains_per_shard=Cl, shape=(SIZE, SIZE), n_group=1, device=torch.device("cpu"),
-                 dtype=torch.float64)
-    draw, _ = sp._problem_sources(
-        problems, None, [lambda shape, d=d: torch.from_numpy(next(its[d])) for d in range(D)],
-        [no_seeds] * D, built)
-
-    def start(ys, lam, theta0, sigma0, params0, prox_b, rfft):
-        X = ys.contiguous()
-        return (X, rfft(X), prox_b(X, lam)[0], theta0, sigma0, params0)
-
-    consts = sp.stack_problem_consts(problems)
-    X0 = torch.stack([p.y for p in problems]).repeat_interleave(Cl, dim=0)
-    carry = start(X0, (consts["lam"] * aux["theta0"]).repeat_interleave(Cl), aux["theta0"].expand(D),
-                  consts["sigma2_init"].clone(),
-                  {k: v.expand(D) for k, v in aux["params0"].items()}, aux["prox_b"], p0.blur.rfft)
+    draw, _ = run.draws(
+        noise=[lambda shape, d=d: torch.from_numpy(next(its[d])) for d in range(D)],
+        seeds=[no_seeds] * D)
+    carry = aux["main_carry"](run.start(run.init_x()), consts)
     batched = []
     for ii in range(2, steps + 2):
         carry, tr = step(carry, ii, consts, draw())
@@ -527,8 +515,10 @@ def test_data_axis_auto_rules_see_one_problems_chains(monkeypatch):
         calls.update(D=0, C=0, B=0)
         s_step, s_aux = est.make_sapg_step(p, Cl, route="B")
         assert s_aux["fuse_dft"](Cl) and not s_aux["in_kernel_rng"](Cl)
-        c = start(p.y.expand(Cl, SIZE, SIZE), s_aux["lam"] * s_aux["theta0"], s_aux["theta0"],
-                  p.sigma2_init, dict(s_aux["params0"]), s_aux["prox_b"], p.blur.rfft)
+        X = p.y.expand(Cl, SIZE, SIZE).contiguous()
+        c = s_aux["main_carry"](
+            (X, p.blur.rfft(X), s_aux["prox_b"](X, s_aux["lam"] * s_aux["theta0"])[0]),
+            s_aux["consts"])
         for t, ii in enumerate(range(2, steps + 2)):
             c, tr = s_step(c, ii, torch.from_numpy(draws[d, t]))
             X, theta, sigma2, btr = batched[t]

@@ -80,7 +80,9 @@ def test_one_step_matches_spatial_oracle():
     X0 = problem.y[None]
     prox0 = aux["prox_b"](X0, aux["lam"] * theta0)[0]
     Z = np.random.default_rng(1).standard_normal(x.shape)
-    carry0 = (X0, torch.fft.rfft2(X0), prox0, theta0, sigma0, params0)
+    carry0 = aux["main_carry"]((X0, torch.fft.rfft2(X0), prox0), aux["consts"])
+    assert [float(v) for v in (carry0[3], carry0[4], *carry0[5].values())] == [
+        float(v) for v in (theta0, sigma0, *params0.values())]
     (X1, _, prox1, theta1, sigma1, params1), trace = step(carry0, 2, torch.from_numpy(Z)[None])
 
     boxes = dict(theta=cfg.theta.box, w1=(0.1, 1.0), w2=(0.1, 1.0),

@@ -45,6 +45,22 @@ def test_port_sources_have_no_jax_imports():
                 assert not forbidden.match(line), (path, line)
 
 
+def test_sapg_modules_do_not_import_the_sharded_entries():
+    """The SAPG run loop lies below parallel/sapg_parallel.py, which calls it:
+    no module under sapg/ imports that module, at its top or in a function."""
+    imports = re.compile(r"^\s*(from|import)\s+\S*sapg_parallel\b"
+                         r"|^\s*from\s+\S*parallel\s+import\s+.*\bsapg_parallel\b")
+    pkg = os.path.join(ROOT, "semiblind_tv_tpu_torch", "sapg")
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    assert len(sources) >= 3
+    for path in sources:
+        with open(path) as fh:
+            for line in fh:
+                assert not imports.match(line), (path, line)
+    assert imports.match("    from semiblind_tv_tpu_torch.parallel.sapg_parallel import x")
+    assert imports.match("from semiblind_tv_tpu_torch.parallel import mesh, sapg_parallel")
+
+
 @pytest.mark.parametrize("name", PNGS)
 def test_png_reader_equals_pil(name):
     from PIL import Image
