@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase10     # phases 0, 1 and 10 only
+    python3 chip_smoke.py --phase11     # phases 0, 1 and 11 only
 
 Phases:
   0. the card (nvidia-smi name and power limit), torch/CUDA versions; TF32
@@ -197,6 +198,20 @@ Phases:
         DFT_AXIS_BOUND (bit-equality printed: D's split-K plan follows the
         launch's chain count).
      Prints `phase10 took … s`.
+ 11. the SAPG step's residual, statistics and update (csrc/sapg_stats.cu,
+     ops/sapg_stats.py) at 512² B=1 and B=16 with the PSF pinned, and at
+     B=1 with two free PSF parameters: each kernel against its plain
+     version on the card (the residual within 1e-6 of the largest
+     magnitude; every statistic, G_σ and each G_p included, within 1e-5 of
+     the float64 magnitude of its terms, ops/sapg_stats.stat_scales; the
+     update within 1e-6: float32 in another order), each one's CUDA-event
+     and device time with L2 emptied before each call (a 256 MB read: at
+     B=16 X̂ and Ĝ would otherwise stay in the 50 MB L2 from call to call,
+     which the step never sees) beside its plain version's and its bound;
+     then the launches of
+     a 512² B=1 Gaussian run_sapg of 40/20 samples (the residual and the
+     statistics every iteration, logπ once more, the update every SAPG
+     iteration).
 
 Prints the card line, a JSON line of the kernels (each with its bound:
 see PEAK_FP32 below; D and E also with their products' time and TF32
@@ -2295,6 +2310,150 @@ def phase10_dft_axis(torch, dev, m, mesh, wheel_np, tag):
           "10f: a problem of the dft data axis left its own run")
 
 
+SAPG_SRC = "semiblind_tv_tpu_torch/csrc/sapg_stats.cu"
+
+
+def sapg_inputs(torch, dev, C, P, M=512, N=512, seed=0):
+    """A 512² step's half-spectrum inputs of one problem × C chains, P
+    free PSF parameters."""
+    from semiblind_tv_tpu_torch.ops.fourier import rfft_weights
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Nh = N // 2 + 1
+
+    def cplx(shape, scale):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.complex64) * scale
+
+    def unif(shape, lo, hi):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    return dict(xhat=cplx((1, C, M, Nh), 1e3), h=cplx((M, Nh) if P == 0 else (1, M, Nh), 0.5),
+                yhat=cplx((1, M, Nh), 1e3), tv=unif((1, C), 1e5, 1e6),
+                theta=unif((1,), 0.005, 0.05), sigma2=unif((1,), 1.0, 20.0),
+                dhs={n: cplx((1, M, Nh), 0.1) for n in ("alpha", "beta")[:P]},
+                weights=rfft_weights((M, N), device=dev), dim=M * N)
+
+
+def sapg_work(C, P, M=512, N=512):
+    """(operations, bytes) of the residual and the statistics of C chains:
+    each value of X̂ read once (and Ĝ written once), H and ŷ (and each free
+    parameter's dH) read once; the residual's 14 operations a value (two
+    complex products and a difference), the statistics' 13 and 11 more a
+    free parameter."""
+    v, one = C * M * (N // 2 + 1), M * (N // 2 + 1)
+    return {"residual": (14 * v, 16 * v + 16 * one),
+            "stats": ((13 + 11 * P) * v, 8 * v + (16 + 8 * P) * one)}
+
+
+def phase11(torch, dev, tag):
+    """Phase 11; returns {kernel: stats} for the kernel table's rows."""
+    import dataclasses
+
+    from semiblind_tv_tpu_torch.ops import sapg_stats as ss
+    from semiblind_tv_tpu_torch.runtime.config import gaussian_preset, moffat_preset
+    from semiblind_tv_tpu_torch.runtime.problem import build_problem
+    from semiblind_tv_tpu_torch.runtime.profiling import counters
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg, sa_step_coefficients
+    from semiblind_tv_tpu_torch.utils.images import load_image
+
+    t11 = time.perf_counter()
+    out = {}
+    # read between calls so that each call starts with none of its inputs in L2
+    evict = torch.empty((64 << 20,), dtype=torch.float32, device=dev)
+    evict.fill_(1.0)
+
+    def cold(fn):
+        def call():
+            evict.sum()
+            return fn()
+        return call
+
+    def cold_ms(fn, reps=20, warm=3):
+        """Median ms of fn() alone over `reps` CUDA-event timings, each
+        after L2 is emptied."""
+        for _ in range(warm):
+            fn()
+        times = []
+        for _ in range(reps):
+            evict.sum()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    for C, P in ((1, 0), (16, 0), (1, 2)):
+        a = sapg_inputs(torch, dev, C, P)
+        args = (a["xhat"], a["h"], a["yhat"], a["tv"], a["theta"], a["sigma2"], a["dhs"],
+                a["weights"], a["dim"])
+        cfg = moffat_preset() if P else gaussian_preset()
+        cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, samples=100))
+        rule = ss.sa_rule(cfg, False, torch.float32, dev)
+        table = torch.from_numpy(sa_step_coefficients(cfg, a["dim"])).float().to(dev)
+        consts = dict(sigma2_lo=a["sigma2"] * 0.5, sigma2_hi=a["sigma2"] * 2,
+                      sigma2_init=a["sigma2"])
+        params = {n: torch.full((1,), 2.0, device=dev) for n in rule.free_names}
+        index = torch.tensor([9], device=dev)
+        ws = {}   # the statistics' buffers, made once as the step makes them
+        packed = ss.sapg_stats(*args, workspace=ws)
+        calls = {
+            "residual": (lambda: ss.sapg_residual(a["xhat"], a["h"], a["yhat"]),
+                         lambda: ss.sapg_residual_plain(a["xhat"], a["h"], a["yhat"])),
+            "stats": (lambda: ss.sapg_stats(*args, workspace=ws),
+                      lambda: ss.sapg_stats_plain(*args)),
+            "update": (lambda: ss.sapg_update(packed, 1, table, index, a["theta"], a["sigma2"],
+                                              params, consts, rule),
+                       lambda: ss.sapg_update_plain(
+                           dict(zip(ss.stat_names(rule.free_names), packed.unbind(0))),
+                           ss.coefficient_column(table, index), a["theta"], a["sigma2"],
+                           params, consts, rule)),
+        }
+        stat_plain = torch.stack(list(ss.sapg_stats_plain(*args).values()))
+        # every statistic within 1e-5 of the float64 magnitude of its terms
+        errs = {"residual": rel(calls["residual"][0](), calls["residual"][1]()),
+                "stats": float(((packed - stat_plain).double().abs()
+                                / ss.stat_scales(*args)).max()),
+                "update": float(((calls["update"][0]() - calls["update"][1]()).abs()
+                                 / calls["update"][1]().abs().clamp_min(1e-30)).max())}
+        work = sapg_work(C, P)
+        for k, (kern, plain) in calls.items():
+            ms, plain_ms = cold_ms(kern), cold_ms(plain)
+            dev_us = device_us(torch, cold(kern), f"sapg_{k}")
+            w = work.get(k, (0.0, 0.0))
+            b = bound(w) if k in work else {"bound_ms": 0.0, "bound_by": "latency"}
+            print(f"phase11 sapg_{k} 512x512 B={C} P={P} (L2 emptied before each call): "
+                  f"kernel {ms * 1e3:.1f} us (device {dev_us:.1f} us), plain "
+                  f"{plain_ms * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.2f} us "
+                  f"({b['bound_by']}), max error {errs[k]:.2e} [{tag}]", flush=True)
+            if (C, P) == (1, 0):
+                out[k] = dict(max_abs_err=errs[k], ms=ms, plain_ms=plain_ms, work=w,
+                              device_us=dev_us)
+        check(errs["residual"] <= 1e-6 and errs["stats"] <= 1e-5 and errs["update"] <= 1e-6,
+              f"phase11 kernels left their plain versions at B={C} P={P}: {errs}")
+
+    # the launches of a short run on the main path
+    cfg = gaussian_preset()
+    cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(cfg.sapg, samples=20, warmup=40,
+                                                            burn_in=16))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    problem = build_problem(load_image(os.path.join(HERE, "data", "images", "wheel.png")), cfg,
+                            gen, device=dev)
+    names = ("launches.sapg_residual", "launches.sapg_stats", "launches.sapg_update")
+    counters.reset(*names)
+    run_sapg(problem, gen)
+    got = [counters[n] for n in names]
+    steps = (cfg.sapg.warmup - 1) + (cfg.sapg.samples - 1)
+    print(f"phase11 run_sapg 512x512 B=1 {cfg.sapg.samples}/{cfg.sapg.warmup}: launches "
+          f"{dict(zip(names, got))} [{tag}]", flush=True)
+    check(got == [steps, steps + 1, cfg.sapg.samples - 1], f"phase11 launches {got}")
+    for k, n in zip(("residual", "stats", "update"), got):
+        out[k]["launches"] = n
+    print(f"phase11 took {time.perf_counter() - t11:.1f} s", flush=True)
+    return out
+
+
 def phase10(torch, dev, m, wheel_np, tag):
     """Phase 10; returns the launches of A1, A2 and B its paths made."""
     import numpy as np
@@ -2510,6 +2669,12 @@ def main() -> int:
             print("phase1   " + line.strip(), flush=True)
 
     wheel_np = load_image(os.path.join(HERE, "data", "images", "wheel.png"))
+    if "--phase11" in sys.argv[1:]:
+        phase11(torch, dev, tag)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--phase10" in sys.argv[1:]:
         # phase 10 by itself (after phases 0 and 1)
         phase10(torch, dev, dict(fs=fused_step_cuda, fd=fd, tv_cuda=tv_cuda, tb=tb,
@@ -2654,6 +2819,10 @@ def main() -> int:
     for k in ("A1", "A2", "B"):
         launches[k] += par[k]
 
+    # ---- phase 11 -----------------------------------------------------------
+    sapg_stats = phase11(torch, dev, tag)
+    sapg_launches = {k: v["launches"] for k, v in sapg_stats.items()}
+
     src = KERNELS_SRC
     rows = [
         ("chambolle_prox_cuda[warm]", src, "semiblind_tv_tpu/ops/tv_pallas.py:262", "A1",
@@ -2680,6 +2849,9 @@ def main() -> int:
          new_stats, new_launches),
         ("prox_variant[base]", J_SRC, "benchmarks/probe_prox_variants.py:362", "J",
          j_stats, j_launches),
+        ("sapg_residual", SAPG_SRC, None, "residual", sapg_stats, sapg_launches),
+        ("sapg_stats", SAPG_SRC, None, "stats", sapg_stats, sapg_launches),
+        ("sapg_update", SAPG_SRC, None, "update", sapg_stats, sapg_launches),
     ]
     kernels = []
     for n, s, r, k, st, ln in rows:

@@ -89,6 +89,16 @@ _SIGNATURES = {
         _I,
     ),
     "sb_prox_variant_occupancy": ([_I, _P], _I),
+    "sb_sapg_stats_span": ([], _I),
+    "sb_sapg_residual": ([_P] * 4 + [_I] * 3 + [_L, _P], _I),
+    "sb_sapg_stats": (
+        [_P] * 13 + [_L] + [_I] * 4 + [_L] + [_I] * 3 + [_F, _P],
+        _I,
+    ),
+    "sb_sapg_update": (
+        [_P] * 12 + [_L] + [_I] * 5 + [_F, _P],
+        _I,
+    ),
 }
 
 

@@ -45,8 +45,8 @@ SALSA/callcounter.m:8-16).  Here:
                         replay), always on.  Only across ranks (a chains
                         group of more than one) the sharded run also counts,
                         always on, `collective.all_reduce.calls` and
-                        `.bytes` (sapg/estimator.py's problem_means, in the
-                        span `sapg.allreduce`) and the noise elements each
+                        `.bytes` (the step's all_reduce of its statistics,
+                        sapg/estimator.py, in the span `sapg.allreduce`) and the noise elements each
                         rank draws and keeps, `noise.drawn`/`noise.kept`
                         (sapg/estimator.SAPGRun.draws), and records the spans
                         `sapg.gather` (the end-of-run gathers) and

@@ -20,7 +20,11 @@ every PSF parameter is fixed), and the spatial segment — MYULA update,
 (myula_prox_tv_blocked) above, in the form of the JAX package's tiled
 kernel G up to 1024² and of its streamed kernel I beyond (gradF's /σ² in
 the kernel).  `resolve_prox_route` picks the initial (and unfused) prox
-the same way.  On the CPU both take the plain versions.
+the same way.  On the CPU both take the plain versions.  Around the
+transforms, the residual Ĝ = conj(H)·(H·X̂ − ŷ), the Parseval statistics
+and the clamped SA updates with the trace row are the three kernels of
+ops/sapg_stats.py on every card route (the plain versions, the step's
+expressions as they were, on the CPU and on the 'plain' route).
 
 In fft_mode='dft' (BlurOperator's dense-DFT transforms) the step follows
 the JAX package's branch order on route B: `resolve_fuse_dft` selects the
@@ -100,6 +104,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -112,6 +117,17 @@ from semiblind_tv_tpu_torch.ops.fused_step_cuda import (
     myula_prox_tv_blocked,
     myula_prox_tv_plain,
     myula_prox_tv_rng,
+)
+from semiblind_tv_tpu_torch.ops.sapg_stats import (
+    coefficient_column,
+    sa_rule,
+    sapg_residual,
+    sapg_residual_plain,
+    sapg_stats,
+    sapg_stats_plain,
+    sapg_update,
+    sapg_update_plain,
+    trace_names,
 )
 from semiblind_tv_tpu_torch.ops.tv import tv_norm
 from semiblind_tv_tpu_torch.ops.tv_blocked_cuda import blocked_rung, chambolle_prox_blocked
@@ -316,12 +332,14 @@ def sa_step_coefficients(cfg, dim: int) -> np.ndarray:
     return np.array(cols, dtype=np.float64).T.copy()
 
 
-def _coefficients(table: torch.Tensor, ii):
-    """Column ii of the coefficient table: a view for a host int, a gather
-    for a device index (a (1,) int64 tensor, which a CUDA graph advances)."""
-    if isinstance(ii, int):
-        return table[:, ii]
-    return table.index_select(1, ii)[:, 0]
+class StepTrace(dict):
+    """A step's trace {name: (D,)}: the rows of one (len, D) tensor `rows`,
+    in the order of its keys (ops/sapg_stats.trace_names), which the trace
+    store writes at an iteration's column in one copy."""
+
+    def __init__(self, names, rows: torch.Tensor):
+        super().__init__(zip(names, rows.unbind(0)))
+        self.rows = rows
 
 
 def _store(buf: torch.Tensor, i, value: torch.Tensor) -> None:
@@ -401,10 +419,6 @@ def make_general_sapg_step(
     def flat(t):
         return t.reshape(-1, *t.shape[2:])
 
-    def lead(v):
-        """A per-problem quantity against by_problem's chain axis."""
-        return v[:, None]
-
     def chains_of(v, C):
         """A per-problem scalar as the kernels' per-chain vector; one
         problem's (1,) as it is (the kernels broadcast it)."""
@@ -419,23 +433,20 @@ def make_general_sapg_step(
         with span("sapg.allreduce"):
             dist.all_reduce(packed, group=chains_group)
 
-    def problem_means(fn, *args):
-        """The chain means of the statistics fn(*args) returns, {name: (C,)
-        tensor} of ONE problem's quantities, as (D,), then their average over
-        the chains group (one all_reduce for all of them).  fn runs on each
-        problem's slice of the args, so each problem's sums take the shapes,
-        and so the order, of its own run (a sum over a larger batch may split
-        otherwise, and the SA loop amplifies a last-bit difference); one
-        problem's means take the problem axis as a view, not a copy."""
-        means = [{k: torch.mean(v) for k, v in fn(*(a[i] for a in args)).items()}
-                 for i in range(problems)]
-        out = {k: means[0][k][None] if problems == 1 else torch.stack([m[k] for m in means])
-               for k in means[0]}
+    def summed(packed):
+        """packed (K, D) summed over the chains group, in place, by the one
+        all_reduce of the step (a CUDA graph's capture ends its graph there)."""
         if n_group > 1:
-            packed = torch.stack(list(out.values()))
             (cuts[-1] if cuts else all_reduce)(packed)
-            out = dict(zip(out, (packed / n_group).unbind(0)))
-        return out
+        return packed
+
+    def group_means(stats):
+        """The plain statistics {name: (D,)} averaged over the chains group
+        (one all_reduce for all of them)."""
+        if n_group > 1:
+            packed = summed(torch.stack(list(stats.values())))
+            stats = dict(zip(stats, (packed / n_group).unbind(0)))
+        return stats
 
     def fuse_dft(B):
         return resolve_fuse_dft(sapg, route, blur.fft_mode, blur.shape, B)
@@ -450,6 +461,12 @@ def make_general_sapg_step(
     theta_spec = cfg.theta
     psf_specs = cfg.psf_params
     psf_names = tuple(s.name for s in psf_specs)
+    names = trace_names(psf_names)
+    # the Fourier-domain work around the spatial segment: the kernels of
+    # ops/sapg_stats.py on the card, their plain versions on the CPU and on
+    # the 'plain' route
+    kernels = route != "plain" and torch.device(device).type == "cuda"
+    stats_workspace = {}   # sapg_stats' buffers, one set a shape, for the step's stream
 
     # only non-fixed params need OTF gradients; with every PSF param pinned
     # (the published Gaussian config, run_Gaussian_demo.m:42-43) the OTF is
@@ -458,7 +475,7 @@ def make_general_sapg_step(
     all_fixed = not free_names
     # the SA updates' step coefficients over ii, rows as sa_step_coefficients
     coef_table = torch.from_numpy(sa_step_coefficients(cfg, d)).to(dtype).to(device)
-    coef_row = {n: 2 + j for j, n in enumerate(free_names)}
+    rule = sa_rule(cfg, sigma_fix, dtype, device)
 
     def otfs(params):
         k, dks = model.kernel_and_grads(params)
@@ -468,12 +485,20 @@ def make_general_sapg_step(
         Hs = Hs.view(len(stack), *k.shape[:-2], *Hs.shape[-2:])
         return Hs[0], {n: Hs[i + 1] for i, n in enumerate(free_names)}
 
-    def pnorm2(Rhat):
-        re, im = Rhat.real, Rhat.imag
-        return torch.sum(w[None] * (re * re + im * im), dim=(-2, -1)) / d
+    def residual(H, Xhat, yhat):
+        """Ĝ = conj(H)·(H·X̂ − ŷ), (D, C, M, Nh)."""
+        return (sapg_residual if kernels else sapg_residual_plain)(by_problem(Xhat), H, yhat)
 
-    def pdot(Ahat, Bhat):
-        return torch.sum(w[None] * (Ahat * torch.conj(Bhat)).real, dim=(-2, -1)) / d
+    def statistics(H, dHs, Xhatn, yhat, tv, theta, sigma2, logpi_only=False):
+        """The step's statistics averaged over each problem's chains and the
+        chains group: on the card sapg_stats' (K, D) block, summed over the
+        group (sapg_update divides it by the group's size); else
+        {name: (D,)}."""
+        args = (by_problem(Xhatn), H, yhat, by_problem(tv), theta, sigma2, dHs, w, d,
+                logpi_only)
+        if kernels:
+            return summed(sapg_stats(*args, workspace=stats_workspace))
+        return group_means(sapg_stats_plain(*args))
 
     tv_b = tv_norm
 
@@ -541,14 +566,9 @@ def make_general_sapg_step(
     def as_t(v):
         return torch.tensor(v, dtype=dtype, device=device)
 
-    fixed_vals = {s.name: s.clip(as_t(s.true_value)) for s in psf_specs if s.fix}
-    log_box = {s.name: (torch.log(as_t(s.box[0])), torch.log(as_t(s.box[1])))
-               for s in psf_specs}
-    log_theta_box = (torch.log(as_t(theta_spec.box[0])), torch.log(as_t(theta_spec.box[1])))
     theta0_c = as_t(theta_spec.init)
     params0_c = {k: as_t(v) for k, v in cfg.init_psf_params().items()}
     H0_c = blur.otf_host(model.kernel(params0_c))
-    zero = torch.zeros((), dtype=dtype, device=device)
     burn_in = sapg.burn_in_resolved
     work = {}  # two spare fields of the Welford update, kept across steps
 
@@ -583,87 +603,33 @@ def make_general_sapg_step(
             with span("psf.otf"):
                 H, dHs = otfs(params)
         with span("sapg.residual"):
-            Hl = H[None] if all_fixed else lead(H)
-            Rhat = Hl * by_problem(Xhat) - lead(yhat)
-            ghat = torch.conj(Hl) * Rhat
+            ghat = residual(H, Xhat, yhat)
             # prox lag: the MYULA update uses the prox of the previous
             # iterate, and the new prox is taken at the current (pre-update) θ
             lam_theta = lam * theta
         Xn, proxn, tv, Xhatn = advance(X, prox, ghat, sigma2, Z, gam, lam, lam_theta,
                                        sapg.positivity, True)
-
-        def chain_stats(H, Xhn, yhat, tv, theta, sigma2, *dH):
-            Rn = H[None] * Xhn - yhat[None]
-            res2 = pnorm2(Rn)
-            # the θ lag: logπ uses the pre-update θ and σ²
-            return dict(
-                G_t=d / theta - tv,
-                G_s=res2 / (2.0 * sigma2 ** 2) - d / (2.0 * sigma2),
-                **{f"G_{n}": pdot(dh[None] * Xhn, Rn) / sigma2 for n, dh in zip(free_names, dH)},
-                logPi=-res2 / (2.0 * sigma2) - theta * tv,
-                gX=tv,
-            )
-
-        Hp = H.expand(problems, *H.shape) if all_fixed else H
         with span("sapg.stats"):
-            stats = problem_means(chain_stats, Hp, by_problem(Xhatn), yhat, by_problem(tv),
-                                  theta, sigma2, *(dHs[n] for n in free_names))
+            # the θ lag: logπ uses the pre-update θ and σ²
+            stats = statistics(H, dHs, Xhatn, yhat, tv, theta, sigma2)
         with span("sapg.update"):
             return update(carry, ii, consts, stats, Xn, Xhatn, proxn)
 
     def update(carry, ii, consts, stats, Xn, Xhatn, proxn):
         """The SA updates of θ, σ² and the free PSF parameters from the
-        step's statistics, Welford's, and the step's (carry, trace)."""
+        step's statistics, Welford's, and the step's (carry, trace): the
+        trace is a StepTrace of the update's rows, θ, σ² and the PSF
+        parameters of the carry views of them."""
         theta, sigma2, params = carry[3:6]
-        G_t, G_s = stats["G_t"], stats["G_s"]
-        G_p = {n: stats[f"G_{n}"] for n in free_names}
-
-        coef = _coefficients(coef_table, ii)
-        if sapg.theta_log_scale:
-            # Algorithm-1: eta = log θ, eta += δ·G_θ·θ, clipped in eta-space
-            # (SALSA/SAPG_algorithm_1.m:180-182)
-            eta_n = torch.clamp(torch.log(theta) + coef[0] * G_t * theta, *log_theta_box)
-            theta_n = torch.exp(eta_n)
+        if kernels:
+            rows = sapg_update(stats, n_group, coef_table, ii, theta, sigma2, params, consts,
+                               rule)
         else:
-            theta_n = theta_spec.clip(theta + coef[0] * G_t)
-        params_n = {}
-        for s in psf_specs:
-            if s.fix:
-                params_n[s.name] = fixed_vals[s.name].expand(problems)
-            elif sapg.psf_log_scale:
-                # log-space update with the chain-rule factor p, clipped in
-                # log space (an extension of the JAX package, opt-in)
-                p = params[s.name]
-                lp_n = torch.clamp(torch.log(p) + coef[coef_row[s.name]] * G_p[s.name] * p,
-                                   *log_box[s.name])
-                params_n[s.name] = torch.exp(lp_n)
-            else:
-                params_n[s.name] = s.clip(params[s.name] + coef[coef_row[s.name]] * G_p[s.name])
-        if sigma_fix:
-            sigma_n = consts["sigma2_init"]
-        elif sapg.sigma_log_scale:
-            # log σ² with the chain-rule factor σ², clipped in log space (an
-            # extension of the JAX package, opt-in: it moves far faster from
-            # the wide BSNR-midpoint init at large d)
-            lsig_n = torch.clamp(
-                torch.log(sigma2) + coef[1] * G_s * sigma2,
-                torch.log(consts["sigma2_lo"]), torch.log(consts["sigma2_hi"]),
-            )
-            sigma_n = torch.exp(lsig_n)
-        else:
-            sigma_n = torch.clamp(sigma2 + coef[1] * G_s, consts["sigma2_lo"], consts["sigma2_hi"])
-
-        trace = dict(
-            theta=theta_n,
-            sigma2=sigma_n,
-            logPi=stats["logPi"],
-            gX=stats["gX"],
-            G_t=G_t,
-            G_s=G_s,
-            **{f"G_{n}": G_p.get(n, zero.expand(problems)) for n in psf_names},
-            **{n: params_n[n] for n in psf_names},
-        )
-        carry_n = (Xn, Xhatn, proxn, theta_n, sigma_n, params_n)
+            rows = sapg_update_plain(stats, coefficient_column(coef_table, ii), theta, sigma2,
+                                     params, consts, rule)
+        trace = StepTrace(names, rows)
+        carry_n = (Xn, Xhatn, proxn, trace["theta"], trace["sigma2"],
+                   {n: trace[n] for n in psf_names})
         if sapg.track_posterior_moments:
             carry_n += (welford(carry[6], Xn, ii),)
         return carry_n, trace
@@ -677,8 +643,7 @@ def make_general_sapg_step(
         sigma0 = consts["sigma2_init"]
         X, Xhat, prox = carry
         with span("sapg.residual"):
-            Rhat = H0_c[None] * by_problem(Xhat) - lead(yhat)
-            ghat = torch.conj(H0_c)[None] * Rhat
+            ghat = residual(H0_c, Xhat, yhat)
             lam_theta = lam * theta0_c
         Xn, proxn, tv, Xhatn = advance(X, prox, ghat, sigma0, Z, gam, lam, lam_theta, True,
                                        False)
@@ -687,12 +652,11 @@ def make_general_sapg_step(
 
     def logpi_init(Xhat, tv, consts):
         """logπ at the initial θ and σ², the mean over a problem's chains."""
-        def chain_stats(Xh, yhat, tv, sigma0):
-            res2 = pnorm2(H0_c[None] * Xh - yhat[None])
-            return dict(logPi=-res2 / (2.0 * sigma0) - theta0_c * tv)
-
-        return problem_means(chain_stats, by_problem(Xhat), consts["yhat"], by_problem(tv),
-                             consts["sigma2_init"])["logPi"]
+        stats = statistics(H0_c, {}, Xhat, consts["yhat"], tv, theta0_c.expand(problems),
+                           consts["sigma2_init"], logpi_only=True)
+        if not kernels:
+            return stats["logPi"]
+        return stats[0] if n_group == 1 else (stats / n_group)[0]
 
     def main_carry(warm_carry, consts):
         """The main scan's first carry from the warm-up's last (X, X̂, prox):
@@ -713,7 +677,6 @@ def make_general_sapg_step(
         psf_names=psf_names,
         prox_b=prox_b,
         tv_b=tv_b,
-        pnorm2=pnorm2,
         warm_step=warm_step,
         theta0=theta0_c,
         params0=params0_c,
@@ -1125,7 +1088,7 @@ class _Iterations:
                 self.names = list(tr)
                 self.buf = torch.empty((len(self.names), self.D, self.n_cols),
                                        dtype=self.dtype, device=self.device)
-            _store(self.buf, ii, torch.stack([tr[n] for n in self.names]))
+            _store(self.buf, ii, tr.rows)
         return carry
 
     def warm(self, carry, t: int, Z):
@@ -1193,7 +1156,6 @@ class _GraphIterations(_Iterations):
         self.Z = torch.empty_like(X)
         self.index = {k: torch.zeros((1,), dtype=torch.int64, device=device)
                       for k in self.static}
-        self.fns = {"warm": self.warm_iter, "main": self.main_iter}
         self.graphs, self.next = {}, {}
 
     def begin(self) -> None:
@@ -1218,7 +1180,7 @@ class _GraphIterations(_Iterations):
             cur = torch.cuda.current_stream(self.device)
             self.stream.wait_stream(cur)
             with torch.cuda.stream(self.stream):
-                carry = self.fns[kind](carry, i, Z)
+                carry = self._fn(kind)(carry, i, Z)
             cur.wait_stream(self.stream)
             counters.add("graph.eager_steps")
             self._capture(kind)
@@ -1239,6 +1201,12 @@ class _GraphIterations(_Iterations):
         profiling.replayed(captured)
         return self.static[kind]
 
+    def _fn(self, kind):
+        """The iteration a kind captures (a bound method made at each call:
+        one kept on the instance would make a reference cycle, and the
+        graphs are to be freed by reference counting, see SAPGRun)."""
+        return self.warm_iter if kind == "warm" else self.main_iter
+
     def _capture(self, kind) -> None:
         static, pool = self.static[kind], torch.cuda.graph_pool_handle()
         pieces, sums = [], []
@@ -1257,7 +1225,7 @@ class _GraphIterations(_Iterations):
             self.aux["cuts"].append(cut)
             try:
                 begin()
-                out = self.fns[kind](static, self.index[kind], self.Z)
+                out = self._fn(kind)(static, self.index[kind], self.Z)
                 for buf, value in zip(static[:3], out[:3]):
                     buf.copy_(value)
                 if kind == "main":
@@ -1285,7 +1253,14 @@ class SAPGRun:
     `warmup` and `samples` override cfg.sapg's (the bare stepper passes 1
     and its step count: no warm-up iterations).  `graphs`: the iterations
     replay as CUDA graphs (_GraphIterations) where resolve_graph_replay
-    holds for the step, else they run eagerly."""
+    holds for the step, else they run eagerly.
+
+    The run holds its problems weakly (its caller keeps them): the first
+    problem keeps a graphed run in its step_graphs, and a reference back
+    would make a cycle that only Python's cycle collector frees, which may
+    run inside another run's capture, where freeing a graph's memory
+    invalidates that capture.  So a run and its graphs go with its
+    problems' last reference, by reference counting."""
 
     def __init__(self, problems: Sequence[Problem], layout: RankLayout,
                  route: Optional[str] = None, warmup: Optional[int] = None,
@@ -1294,7 +1269,8 @@ class SAPGRun:
         for p in problems:
             if p.device != layout.device:
                 raise ValueError(f"problem on {p.device}, this rank's device is {layout.device}")
-        self.problems, self.layout, self.route = list(problems), layout, route
+        self._problems = [weakref.ref(p) for p in problems]
+        self.layout, self.route = layout, route
         self.cfg, self.blur = p0.cfg, p0.blur
         self.shape = tuple(self.blur.shape)
         self.chains = layout.rows.stop - layout.rows.start   # C_l, the rank's of a problem
@@ -1312,6 +1288,10 @@ class SAPGRun:
         self.iterations = (_GraphIterations if graphs else _Iterations)(
             self.step, self.aux, self.consts, self.blur, D, self.chains, self.n_warm,
             (sapg.samples if samples is None else samples) + 1)
+
+    @property
+    def problems(self) -> List[Problem]:
+        return [ref() for ref in self._problems]
 
     def init_x(self, x0=None) -> torch.Tensor:
         """X0 (D·C_l, M, N): each problem's y (op.X0's default,

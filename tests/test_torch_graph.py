@@ -17,6 +17,8 @@ resolve_graph_replay; runtime/profiling.py: capturing, replayed).
   not the copies the problem-batched form made for a batch of one.
 * The engagement rule takes the graphs only on a CUDA device, route 'B',
   fft_mode 'fft', a noise field and no posterior moments.
+* A graphed run kept in its first problem's step_graphs, and its
+  iterations, are freed with the problems by reference counting alone.
 * A capture's launch and sweep reports leave the counters as they were and
   are handed over once a replay; an eager run counts every iteration in
   `graph.eager_steps`.
@@ -99,7 +101,7 @@ def test_table_step_equals_todays_formulas_bit_for_bit(name, logs, monkeypatch):
     assert problem.cfg.psf_params[0].fix == (name == "gaussian")
     table = _run(problem)
     dim = problem.blur.dim
-    monkeypatch.setattr(est, "_coefficients", lambda t, ii: _today(cfg, dim, ii))
+    monkeypatch.setattr(est, "coefficient_column", lambda t, ii: _today(cfg, dim, ii))
     today = _run(problem)
     assert table.X_last.dtype == np.float32
     for a, b in [(table.thetas, today.thetas), (table.sigma2s, today.sigma2s),
@@ -230,6 +232,38 @@ def test_eager_run_counts_eager_steps_and_never_captures():
     assert profiling.counters["graph.eager_steps"] == 4 + 11
     assert profiling.counters["graph.replays"] == profiling.counters["graph.captures"] == 0
     assert problem.step_graphs == {}
+
+
+@pytest.mark.parametrize("D", [1, 2], ids=["one problem", "two problems"])
+def test_a_kept_graphed_run_goes_with_its_problems_by_reference_counting(D, monkeypatch):
+    """The graphed run kept in the first problem's step_graphs, and its
+    iterations (which hold the graphs), are freed when the problems'
+    last references go, with the cycle collector off: no reference cycle
+    keeps them for a collection that could fall inside a later capture.
+    On the CPU, with a stand-in for the capture stream; the graphs
+    themselves on the card (tests/test_torch_on_card.py)."""
+    import gc
+    import weakref
+
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: None)
+    monkeypatch.setattr(est, "resolve_graph_replay", lambda *a, **k: True)
+    cfg = _cfg("moffat", samples=12, warmup=5)
+    problems = [_problem(cfg) for _ in range(D)]
+    layout = RankLayout(problems=range(D), rows=slice(0, 2), device=torch.device("cpu"))
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        run = est._run_for(problems, layout, None, True)
+        assert isinstance(run.iterations, est._GraphIterations)
+        assert problems[0].step_graphs["run"] is run
+        assert est._run_for(problems, layout, None, True) is run
+        assert all(a is b for a, b in zip(run.problems, problems))
+        refs = [weakref.ref(run), weakref.ref(run.iterations)]
+        del run, problems
+        assert [r() for r in refs] == [None, None]
+    finally:
+        if was_on:
+            gc.enable()
 
 
 def test_a_capture_reports_its_chain_groups_once_a_replay():

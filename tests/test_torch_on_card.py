@@ -72,6 +72,16 @@ kernel B's launches and sweep counts are the eager run's (25 sweeps a call
 at 512²); a preempted and resumed graphed run and a NaN-guard restore
 through fault_hook end on the eager trajectory; the barrier error stays 0.
 
+The SAPG step's residual, statistics and update (csrc/sapg_stats.cu) at
+512² B=1 and 16, a ragged 100×130 of three problems and 512² with two free
+PSF parameters: the residual within 1e-6 of a chain's largest magnitude
+(PyTorch's products may be contracted into FMAs), the statistics within
+1e-5 of the magnitude of each one's terms (float32 sums in another order;
+G_σ cancels), the update within 1e-6 relative in every branch (CUDA's
+logf/expf against PyTorch's); two launches give the same bits, each of four
+problems in one launch gets the bits of its own launch, and a run of four
+problems × two chains the bits of each problem's own run; no spills.
+
 Per-chain scalars (the problems of a sharded run in one launch): A1, A2,
 B, C, F and G called with one λ (and γ, λθ, σ²) a chain, as (B,) tensors,
 equal their plain versions fed the same vectors bit for bit at a fixed
@@ -906,9 +916,10 @@ def test_graphed_run_is_bit_equal_to_the_eager_run(cuda_device, name, size, B):
     """run_sapg replays its iterations as CUDA graphs on route B: traces and
     X_last equal the eager step's bit for bit, in the capturing run and in
     the next (which replays every iteration), each iteration is a replay or
-    an eager step, kernel B's launches, chain groups and sweeps are the eager
-    run's (512² B=16: the stacked form, three groups a call, inside the
-    captured step), and the resident kernel's barriers complete."""
+    an eager step, kernel B's launches, chain groups and sweeps and the SAPG
+    statistics kernels' launches are the eager run's (512² B=16: the stacked
+    form, three groups a call, inside the captured step), and the resident
+    kernel's barriers complete."""
     from semiblind_tv_tpu_torch.runtime import profiling
     from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
 
@@ -933,16 +944,54 @@ def test_graphed_run_is_bit_equal_to_the_eager_run(cuda_device, name, size, B):
     assert first["graph.replays"] + first["graph.eager_steps"] == steps
     assert second["graph.replays"] == steps and "graph.eager_steps" not in second
     assert eager["graph.eager_steps"] == steps and "graph.replays" not in eager
+    sapg = ("launches.sapg_residual", "launches.sapg_stats", "launches.sapg_update")
     for c in (first, second):
-        for k in ("launches.B", "groups.B", "sweeps.B", "chain_calls.B"):
+        for k in ("launches.B", "groups.B", "sweeps.B", "chain_calls.B") + sapg:
             assert c[k] == eager[k], k
     assert eager["chain_calls.B"] == B * steps
+    # the residual and the statistics every iteration, logπ once at the
+    # warm-up's end, the update every SAPG iteration
+    assert [eager[k] for k in sapg] == [steps, steps + 1, samples - 1]
     assert eager["groups.B"] == eager["launches.B"] * (3 if (size, B) == (512, 16) else 1)
     if size == 512:
         assert eager["sweeps.B"] == 25 * eager["chain_calls.B"]
     _assert_bit_equal(runs[1], runs[0])
     _assert_bit_equal(runs[2], runs[0])
     assert tv_cuda.barrier_error() == 0
+
+
+def test_an_earlier_runs_graphs_go_before_the_next_capture(cuda_device):
+    """A problem keeps its graphed run in step_graphs, and the run holds
+    its problems weakly, so the run's graphs are freed by reference
+    counting when the problem goes, with the cycle collector off, and not
+    by a collection inside a later capture (which would invalidate it).
+    With a collection due at nearly every allocation, the next problem's
+    graphed run captures and replays as its eager run does."""
+    import gc
+    import weakref
+
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg
+
+    first = _graph_problem(cuda_device, "moffat", 64, samples=12, warmup=6, burn_in=8)
+    run_sapg(first, n_chains=2, noise=_draws(cuda_device, 3))
+    its = weakref.ref(first.step_graphs["run"].iterations)
+    assert its().graphs
+    gc.disable()
+    try:
+        del first
+        assert its() is None
+    finally:
+        gc.enable()
+    second = _graph_problem(cuda_device, "moffat", 64, samples=12, warmup=6, burn_in=8)
+    eager = run_sapg(second, n_chains=2, noise=_draws(cuda_device, 3), _graphs=False)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        graphed = run_sapg(second, n_chains=2, noise=_draws(cuda_device, 3))
+    finally:
+        gc.set_threshold(*threshold)
+    assert second.step_graphs
+    _assert_bit_equal(graphed, eager)
 
 
 def test_graphed_run_resumes_and_restores_as_the_eager_run(cuda_device, tmp_path):
@@ -1039,3 +1088,202 @@ def test_chain_scalars_kernel_matches_plain(cuda_device, form):
         for a, c in zip(k, one):
             assert torch.equal(a[b], c[0]), (form, b)
     assert tv_cuda.barrier_error() == 0
+
+
+# ---------------------------------------------------------------------------
+# The SAPG step's residual, statistics and update (csrc/sapg_stats.cu)
+# ---------------------------------------------------------------------------
+
+# (D, C, M, N, free PSF parameters): 512² at B = 1 and 16 with the PSF
+# pinned, a ragged shape of three problems, 512² with Moffat's two free
+# parameters
+SAPG_SHAPES = [(1, 1, 512, 512, 0), (1, 16, 512, 512, 0), (3, 2, 100, 130, 2),
+               (1, 1, 512, 512, 2)]
+# the residual: elementwise products and sums, which PyTorch's kernels may
+# contract into FMAs (the kernel rounds each alone): a few float32 ulps of a
+# chain's largest magnitude
+RESIDUAL_REL = 1e-6
+# the statistics: float32 sums of a chain's M·(N/2+1) values taken in
+# another order (a tree of 256, then the blocks' partials, against
+# torch.sum's): within 1e-5 of the magnitude of each statistic's terms
+# (Σ|terms| in float64), as G_σ = res2/(2σ⁴) − d/(2σ²) cancels
+STATS_REL = 1e-5
+# the update: the same float32 operations, CUDA's logf/expf against
+# PyTorch's in the log-scale branches: a few ulps
+UPDATE_REL = 1e-6
+
+
+def _sapg_inputs(dev, D, C, M, N, P, seed=0):
+    from semiblind_tv_tpu_torch.ops.fourier import rfft_weights
+
+    g = torch.Generator().manual_seed(seed)
+    Nh = N // 2 + 1
+
+    def cplx(shape, scale):
+        return (torch.complex(torch.randn(shape, generator=g), torch.randn(shape, generator=g))
+                * scale).to(dev)
+
+    def unif(shape, lo, hi):
+        return (torch.rand(shape, generator=g) * (hi - lo) + lo).to(dev)
+
+    return dict(
+        xhat=cplx((D, C, M, Nh), 1e3), h=cplx((M, Nh) if P == 0 else (D, M, Nh), 0.5),
+        yhat=cplx((D, M, Nh), 1e3), tv=unif((D, C), 1e5, 1e6), theta=unif((D,), 0.005, 0.05),
+        sigma2=unif((D,), 1.0, 20.0),
+        dhs={n: cplx((D, M, Nh), 0.1) for n in ("alpha", "beta")[:P]},
+        weights=rfft_weights((M, N), device=dev), dim=M * N)
+
+
+def _stats_args(a, theta=None):
+    return (a["xhat"], a["h"], a["yhat"], a["tv"], a["theta"] if theta is None else theta,
+            a["sigma2"], a["dhs"], a["weights"], a["dim"])
+
+
+def _stat_scales(a, logpi_only=False):
+    """(K, D): each problem's mean over its chains of the magnitude of each
+    statistic's terms, in float64 (ops/sapg_stats.stat_scales)."""
+    from semiblind_tv_tpu_torch.ops import sapg_stats as ss
+
+    return ss.stat_scales(*_stats_args(a), logpi_only=logpi_only)
+
+
+def _sapg_rule(dev, name, logs=(), sigma_fix=False):
+    import dataclasses
+
+    from semiblind_tv_tpu_torch.ops import sapg_stats as ss
+    from semiblind_tv_tpu_torch.runtime.config import preset
+    from semiblind_tv_tpu_torch.sapg.estimator import sa_step_coefficients
+
+    cfg = preset(name)
+    cfg = dataclasses.replace(cfg, sapg=dataclasses.replace(
+        cfg.sapg, samples=100, **{f"{k}_log_scale": True for k in logs}))
+    table = torch.from_numpy(sa_step_coefficients(cfg, 512 * 512)).float().to(dev)
+    return ss.sa_rule(cfg, sigma_fix, torch.float32, dev), table
+
+
+@pytest.mark.parametrize("shape", SAPG_SHAPES, ids=lambda s: "D{}C{}-{}x{}-P{}".format(*s))
+def test_sapg_residual_and_stats_match_plain(cuda_device, shape):
+    """One launch a call; twice the same inputs give the same bits."""
+    from semiblind_tv_tpu_torch.ops import sapg_stats as ss
+
+    a = _sapg_inputs(cuda_device, *shape)
+    before = counters["launches.sapg_residual"], counters["launches.sapg_stats"]
+    g = ss.sapg_residual(a["xhat"], a["h"], a["yhat"])
+    packed = ss.sapg_stats(*_stats_args(a))
+    warm = ss.sapg_stats(a["xhat"], a["h"] if a["h"].ndim == 2 else a["h"][0].contiguous(),
+                         a["yhat"], a["tv"], a["theta"][:1].expand(shape[0]), a["sigma2"], {},
+                         a["weights"], a["dim"], logpi_only=True)
+    torch.cuda.synchronize()
+    assert (counters["launches.sapg_residual"] - before[0],
+            counters["launches.sapg_stats"] - before[1]) == (1, 2)
+    assert _rel_err(g, ss.sapg_residual_plain(a["xhat"], a["h"], a["yhat"])) <= RESIDUAL_REL
+    plain = torch.stack(list(ss.sapg_stats_plain(*_stats_args(a)).values()))
+    assert packed.shape == plain.shape == (4 + shape[4], shape[0])
+    scale = _stat_scales(a)
+    assert float(((packed - plain).double().abs() / scale).max()) <= STATS_REL
+    wa = dict(a, h=a["h"] if a["h"].ndim == 2 else a["h"][0], theta=a["theta"][:1].expand(shape[0]),
+              dhs={})
+    wplain = ss.sapg_stats_plain(*_stats_args(wa), logpi_only=True)["logPi"]
+    assert float(((warm[0] - wplain).double().abs() / _stat_scales(wa, True)[0]).max()) <= STATS_REL
+    assert torch.equal(ss.sapg_residual(a["xhat"], a["h"], a["yhat"]), g)
+    assert torch.equal(ss.sapg_stats(*_stats_args(a)), packed)
+
+
+UPDATE_CASES = [("gaussian", (), False), ("moffat", (), False), ("gaussian", (), True),
+                ("moffat", ("theta", "sigma", "psf"), False), ("moffat", ("theta",), True),
+                ("gaussian", ("sigma",), False)]
+
+
+@pytest.mark.parametrize("D", [1, 3])
+@pytest.mark.parametrize("case", UPDATE_CASES, ids=lambda c: f"{c[0]}-{'+'.join(c[1]) or 'linear'}"
+                         f"{'-sigma-pinned' if c[2] else ''}")
+def test_sapg_update_matches_plain(cuda_device, case, D):
+    """Every branch of the update, from the same packed block summed over a
+    group of 1 or 4 ranks, at a host column and at a device index."""
+    from semiblind_tv_tpu_torch.ops import sapg_stats as ss
+
+    rule, table = _sapg_rule(cuda_device, *case)
+    g = torch.Generator().manual_seed(D)
+
+    def unif(lo, hi, n=D):
+        return (torch.rand((n,), generator=g) * (hi - lo) + lo).to(cuda_device)
+
+    K = 4 + len(rule.free_names)
+    packed = (torch.rand((K, D), generator=g) * 2e5 - 1e5).to(cuda_device)
+    lo = unif(0.5, 1.0)
+    consts = dict(sigma2_lo=lo, sigma2_hi=lo + unif(5.0, 50.0), sigma2_init=unif(1.0, 5.0))
+    params = {s.name: unif(*s.box) for s in rule.psf_specs if not s.fix}
+    theta, sigma2 = unif(*rule.theta_spec.box), unif(1.0, 20.0)
+    for n_group, ii in ((1, 2), (4, 57)):
+        summed = packed * n_group
+        before = counters["launches.sapg_update"]
+        for col in (ii, torch.tensor([ii], device=cuda_device)):
+            rows = ss.sapg_update(summed, n_group, table, col, theta, sigma2, params, consts,
+                                  rule)
+            stats = dict(zip(ss.stat_names(rule.free_names), (summed / n_group).unbind(0)))
+            want = ss.sapg_update_plain(stats, ss.coefficient_column(table, ii), theta, sigma2,
+                                        params, consts, rule)
+            assert rows.shape == want.shape == (len(ss.trace_names(rule.psf_names)), D)
+            assert bool(((rows - want).abs() <= UPDATE_REL * want.abs()).all()), (rows, want)
+            assert torch.equal(rows, ss.sapg_update(summed, n_group, table, col, theta, sigma2,
+                                                    params, consts, rule))
+        assert counters["launches.sapg_update"] - before == 4
+
+
+def test_sapg_kernels_give_each_problem_its_own_bits(cuda_device):
+    """D = 4 problems of C = 4 chains in one launch against each problem's
+    launch alone: the residual, the statistics (each problem's chains summed
+    in their own order) and the update, bit for bit."""
+    from semiblind_tv_tpu_torch.ops import sapg_stats as ss
+
+    D, C = 4, 4
+    a = _sapg_inputs(cuda_device, D, C, 512, 512, 2, seed=3)
+    rule, table = _sapg_rule(cuda_device, "moffat")
+    consts = dict(sigma2_lo=a["sigma2"] * 0.5, sigma2_hi=a["sigma2"] * 2,
+                  sigma2_init=a["sigma2"])
+    params = {n: torch.full((D,), 2.0, device=cuda_device) for n in rule.free_names}
+    g_all = ss.sapg_residual(a["xhat"], a["h"], a["yhat"])
+    p_all = ss.sapg_stats(*_stats_args(a))
+    r_all = ss.sapg_update(p_all, 1, table, 9, a["theta"], a["sigma2"], params, consts, rule)
+    for d in range(D):
+        one = {k: (v[d:d + 1].contiguous() if torch.is_tensor(v) and k != "weights" else v)
+               for k, v in a.items()}
+        one["dhs"] = {n: v[d:d + 1].contiguous() for n, v in a["dhs"].items()}
+        assert torch.equal(ss.sapg_residual(one["xhat"], one["h"], one["yhat"]), g_all[d:d + 1])
+        p = ss.sapg_stats(*_stats_args(one))
+        assert torch.equal(p, p_all[:, d:d + 1])
+        r = ss.sapg_update(p, 1, table, 9, one["theta"], one["sigma2"],
+                           {n: v[d:d + 1] for n, v in params.items()},
+                           {k: v[d:d + 1] for k, v in consts.items()}, rule)
+        assert torch.equal(r, r_all[:, d:d + 1])
+
+
+def test_sapg_data_axis_run_gives_each_problem_its_own_run(cuda_device):
+    """run_sapg_layout over 4 problems × 2 chains on the card (one launch of
+    every kernel a step for all 8 chains, its iterations as CUDA graphs)
+    against each problem's own run_sapg, on the same noise: traces and
+    X_last bit for bit."""
+    from semiblind_tv_tpu_torch.parallel.mesh import RankLayout
+    from semiblind_tv_tpu_torch.sapg.estimator import run_sapg, run_sapg_layout
+
+    D, C = 4, 2
+    problems = [_graph_problem(cuda_device, "gaussian", 128, samples=30, warmup=10, burn_in=20)
+                for _ in range(D)]
+    for d, p in enumerate(problems):   # four observations of one image
+        p.yhat.mul_(1.0 + 0.01 * d)
+    layout = RankLayout(problems=range(D), rows=slice(0, C), device=problems[0].device)
+    together = run_sapg_layout(problems, layout, noise=[_draws(cuda_device, 7 + d)
+                                                        for d in range(D)])
+    for d, p in enumerate(problems):
+        alone = run_sapg(p, n_chains=C, noise=_draws(cuda_device, 7 + d))
+        _assert_bit_equal(together[d], alone)
+
+
+def test_sapg_kernels_spill_nothing(cuda_device):
+    from semiblind_tv_tpu_torch import _build
+
+    usage = _build.kernel_usage("sapg_")
+    assert {k for k in usage if "residual" in k} and {k for k in usage if "stats" in k} \
+        and {k for k in usage if "update" in k}, usage
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
